@@ -40,14 +40,15 @@ failure path. ``failover``/``hedging`` consume the same plan object.
 
 The compiled snapshot is also the entry point for the device backends:
 ``CompiledGraph.device_topology(device)`` caches the torch ``starts``/
-``ends`` tensors consumed by both ``routing_torch.layered_dp_kbest`` and
-the ``kernels/tropical_route`` CUDA kernel, so batched device routing
-reuses the same compile-once-per-snapshot contract.
+``ends`` tensors consumed by the ``routing_torch`` DPs and the
+``kernels/tropical_route`` CUDA kernels (with ``device_route_csr``, the
+end-boundary bucketing kernel K2 scans), so batched device routing reuses
+the same compile-once-per-snapshot contract.
 
 Port of ``repro.core.planner``, copied verbatim except for the device
-cache (``CompiledGraph.device_topology`` / ``device_state``), which holds
-torch tensors on the port's device instead of jnp arrays. The cache stays
-keyed by registry version.
+cache (``CompiledGraph.device_topology`` / ``device_route_csr`` /
+``device_state``), which holds torch tensors on the port's device instead
+of jnp arrays. The cache stays keyed by registry version.
 """
 from __future__ import annotations
 
@@ -62,6 +63,7 @@ import torch
 from repro_torch.configs.base import GTRACConfig
 from repro_torch.core.trust import effective_cost_vec
 from repro_torch.core.types import PeerTable, RouteResult
+from repro_torch.kernels.tropical_route import route_csr
 
 _INF = float("inf")
 
@@ -107,6 +109,16 @@ class CompiledGraph:
                 torch.as_tensor(np.asarray(t.layer_end, np.int32),
                                 device=device),
             )
+        return self._device[key]
+
+    def device_route_csr(self, device):
+        """Kernel K2's end-boundary bucketing of ``device_topology``
+        (``kernels.tropical_route.route_csr``), built once per compiled
+        snapshot and device."""
+        key = ("csr", str(device))
+        if key not in self._device:
+            starts, ends = self.device_topology(device)
+            self._device[key] = route_csr(starts, ends, self.total_layers)
         return self._device[key]
 
     def device_state(self, table: PeerTable, device):

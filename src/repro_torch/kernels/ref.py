@@ -1,9 +1,10 @@
 """Plain PyTorch oracles: ports of the reference's ground truth.
 
-Port of ``repro.kernels.ref`` for the kernels of this slice:
-``attention_ref`` (naive full-softmax GQA attention) and
+Port of ``repro.kernels.ref`` for the kernels ported so far:
+``attention_ref`` (naive full-softmax GQA attention),
+``tropical_route_ref`` (the single-best layered DP) and
 ``tropical_route_kbest_ref`` (the K-best layered DP with one stable sort
-per boundary). The tests hold both against the reference oracles, and the
+per boundary). The tests hold them against the reference oracles, and the
 kernels and their plain versions against these.
 """
 from __future__ import annotations
@@ -32,6 +33,33 @@ def attention_ref(q, k, v, *, causal: bool = True):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def tropical_route_ref(starts, ends, costs, total_layers: int):
+    """Layered-DAG min-plus DP, the plain oracle.
+
+    starts/ends (P,), costs (R, P) with INF-pruned entries. A boundary that
+    no peer ends at keeps INF. Returns (dist (R, L+1) f32, pred (R, L+1)
+    int32)."""
+    starts = torch.as_tensor(starts)
+    ends = torch.as_tensor(ends)
+    costs = torch.as_tensor(costs, dtype=torch.float32)
+    R, P = costs.shape
+    L = total_layers
+    dev = costs.device
+    inf = torch.tensor(INF, dtype=torch.float32, device=dev)
+    dist = torch.full((R, L + 1), INF, dtype=torch.float32, device=dev)
+    pred = torch.full((R, L + 1), -1, dtype=torch.int32, device=dev)
+    dist[:, 0] = 0.0
+    for b in range(1, L + 1):
+        mask = ends.long() == b
+        if not bool(mask.any()):
+            continue
+        cand = torch.where(mask[None, :], dist[:, starts.long()] + costs, inf)
+        best, arg = cand.min(dim=1)
+        dist[:, b] = best
+        pred[:, b] = torch.where(best < inf, arg, -1).to(torch.int32)
+    return dist, pred
 
 
 def tropical_route_kbest_ref(starts, ends, costs, total_layers: int,

@@ -2,10 +2,12 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-large \
         --windowed --attn-impl flash
+    PYTHONPATH=src python -m repro_torch.launch.serve --algorithm sp
 
-Port of ``repro.launch.serve`` for this slice: the ``gtrac`` mode with the
-window-batched router (``--windowed``, optionally ``--disaggregate``) or
-per-token ``generate``. Runs on ``cuda`` unless ``--device cpu``. Weights
+Port of ``repro.launch.serve`` for the ``gtrac`` mode: the window-batched
+router (``--windowed``, optionally ``--disaggregate``; G-TRAC only) or
+per-token ``generate`` under any ``--algorithm``. Runs on ``cuda`` unless
+``--device cpu``. Weights
 are random, made from ``--seed`` with ``init_params`` (the reference's
 distributions), so the tokens are meaningless; the routing, trust, repair
 and stage compute are the real thing. The reference's plain engine mode,
@@ -40,6 +42,8 @@ def main(argv=None):
     ap.add_argument("--attn-impl", default="flash", choices=["xla", "flash"],
                     help="flash: the CUDA flash-attention kernel; xla: "
                          "plain PyTorch attention")
+    ap.add_argument("--algorithm", default="gtrac",
+                    choices=["gtrac", "sp", "mr", "naive", "larac"])
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--layers-per-stage", type=int, default=2)
@@ -71,6 +75,9 @@ def main(argv=None):
     ap.add_argument("--burst-size", type=int, default=4,
                     help="requests per arrival burst (with --burst-every)")
     args = ap.parse_args(argv)
+    if args.windowed and args.algorithm != "gtrac":
+        ap.error("--windowed routes via the gtrac batch router; "
+                 "--algorithm %s is only available per-token" % args.algorithm)
     if args.disaggregate and not args.windowed:
         ap.error("--disaggregate splits the window-batched serving loop "
                  "(run_queue); add --windowed")
@@ -92,7 +99,8 @@ def main(argv=None):
     gcfg = GTRACConfig(disaggregate=args.disaggregate, **kw)
     srv = GTRACPipelineServer(cfg, params,
                               layers_per_stage=args.layers_per_stage,
-                              seed=args.seed, gcfg=gcfg, device=device)
+                              algorithm=args.algorithm, seed=args.seed,
+                              gcfg=gcfg, device=device)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     if args.windowed:
@@ -141,7 +149,7 @@ def main(argv=None):
                   f"-> {out.tolist()}")
         _sync(device)
         wall = time.perf_counter() - t0
-        print(f"SSR: {ok}/{args.requests}")
+        print(f"SSR: {ok}/{args.requests} ({args.algorithm})")
     print(f"device {device}: {tokens} tokens in {wall:.3f} s wall "
           f"({tokens / max(wall, 1e-9):.1f} tokens/s), kernel launches "
           f"{ops.launch_counts()}")

@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import GTRACConfig
 from repro_torch.core.planner import RoutePlan, RoutePlanner, _edge_disjoint_order
 from repro_torch.core.routing_torch import route_batched_kbest
@@ -52,7 +53,8 @@ def _resolve_backend(backend: str, device) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     if backend == "auto":
-        return "kernel" if torch.device(device).type == "cuda" else "torch"
+        dev = resolve_device() if device is None else torch.device(device)
+        return "kernel" if dev.type == "cuda" else "torch"
     return backend
 
 
@@ -60,7 +62,7 @@ def plan_batched(table: PeerTable, total_layers: int, cfg: GTRACConfig,
                  taus: np.ndarray, *, planner: RoutePlanner,
                  k_best: Optional[int] = None,
                  backend: str = "auto",
-                 device="cpu",
+                 device=None,
                  warm_masks: Optional[np.ndarray] = None,
                  kv_bonus: float = 0.0) -> List[RoutePlan]:
     """One batched K-best DP -> one ``RoutePlan`` per request.
@@ -83,6 +85,9 @@ def plan_batched(table: PeerTable, total_layers: int, cfg: GTRACConfig,
     plans — bit-identical to the bonus-free path). Plan ``costs`` are
     then the *discounted* objective: correct for ranking alternates,
     not a latency estimate.
+
+    ``device`` is where the torch / kernel DP runs: ``cuda`` unless the
+    caller passes another; the numpy backend never touches it.
     """
     k = planner.k_best if k_best is None else int(k_best)
     taus = np.asarray(taus, np.float64)
@@ -151,7 +156,7 @@ class BatchRouter:
     cfg: GTRACConfig
     total_layers: int
     backend: str = "auto"       # auto | numpy | torch | kernel
-    device: object = "cpu"      # where the torch / kernel DP runs
+    device: object = None       # where the torch / kernel DP runs (cuda)
     k_best: Optional[int] = None
     stats: RouterStats = field(default_factory=RouterStats)
     # sim-domain tracer: plan cost is HOST work that advances no sim

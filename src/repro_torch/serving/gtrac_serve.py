@@ -26,13 +26,15 @@ hand their warm streams to the continuous decode pool.
 Port of ``repro.serving.gtrac_serve``: ``make_stage_fns``, ``sample_token``,
 ``ServeMetrics``, ``latency_summary``, ``RoutedRequest`` and
 ``GTRACPipelineServer`` (``submit``, ``run_queue`` with disaggregated
-chunked prefill, and ``generate``) for ``algorithm="gtrac"``. Stage
-compute is PyTorch on an explicit ``device``: every layer's attention goes
-through kernel K3 with ``attn_impl="flash"``, and each window's batched
-K-best DP through kernel K1 when the router backend resolves to
-``kernel``. Token tensors stay on the device. The reference's sharded and
-process-backed anchors, gossip sync plane, hedged executor and baseline
-algorithms join the port in later slices; asking for them raises
+chunked prefill, and ``generate`` under every routing policy of
+``core.routing.ALGORITHMS``). Stage compute is PyTorch on an explicit
+``device``: every layer's attention goes through kernel K3 with
+``attn_impl="flash"``, and each window's batched K-best DP through kernel
+K1 when the router backend resolves to ``kernel``. Token tensors stay on
+the device. As in the reference, ``run_queue`` always routes through the
+batched G-TRAC router, whatever ``algorithm`` says. The reference's
+sharded and process-backed anchors, gossip sync plane and hedged executor
+join the port in later slices; asking for them raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -48,6 +50,7 @@ from repro_torch.configs.base import GTRACConfig, ModelConfig
 from repro_torch.core.executor import ChainExecutor, split_reports
 from repro_torch.core.planner import RoutePlanner, plan_route
 from repro_torch.core.registry import AnchorRegistry, SeekerCache
+from repro_torch.core.routing import ALGORITHMS
 from repro_torch.core.types import HopReport
 from repro_torch.distributed.pipeline import StagePartition
 from repro_torch.models.common import (apply_norm, embed_tokens, logits_head,
@@ -223,11 +226,9 @@ class RoutedRequest(Request):
     _pending_tok: int = 0
 
 
-def _unported(gcfg: GTRACConfig, algorithm: str) -> None:
-    """Raise for the reference's serving features this slice leaves out."""
+def _unported(gcfg: GTRACConfig) -> None:
+    """Raise for the reference's serving features the port leaves out."""
     later = [
-        (algorithm != "gtrac",
-         f"algorithm={algorithm!r} (the baselines of core/routing.py)"),
         (gcfg.anchor_shards > 1, "anchor_shards > 1 (core/sharding.py)"),
         (gcfg.control_plane != "inproc",
          f"control_plane={gcfg.control_plane!r} (control_plane/)"),
@@ -261,7 +262,7 @@ class GTRACPipelineServer:
         (``serving/batch_router.BACKENDS``)."""
         self.cfg = cfg
         self.gcfg = gcfg or GTRACConfig()
-        _unported(self.gcfg, algorithm)
+        _unported(self.gcfg)
         self.algorithm = algorithm
         self.device = resolve_device(device)
         emb = params["embed"]["tok"]
@@ -388,6 +389,7 @@ class GTRACPipelineServer:
         tokens = self._token_tensor(prompt)
         metrics = ServeMetrics()
         t_start = self.bed.now
+        route_fn = ALGORITHMS[self.algorithm]
         executor = ChainExecutor(self.gcfg, self._hop_fn(request_id))
         tr = self.tracer
         traced = tr.enabled
@@ -399,9 +401,16 @@ class GTRACPipelineServer:
 
         for _ in range(max_new_tokens):
             table = self._sync_and_view()
-            # planner path: K-best plan cached per snapshot version
-            route, plan = plan_route(table, self.cfg.num_layers,
-                                     self.gcfg, planner=self.planner)
+            plan = None
+            if self.algorithm == "gtrac":
+                # planner path: K-best plan cached per snapshot version
+                route, plan = plan_route(table, self.cfg.num_layers,
+                                         self.gcfg, planner=self.planner)
+            else:
+                kwargs = ({"rng": self.bed.rng}
+                          if self.algorithm == "naive" else {})
+                route = route_fn(table, self.cfg.num_layers, self.gcfg,
+                                 **kwargs)
             if not route.feasible:
                 metrics.infeasible += 1
                 break

@@ -121,6 +121,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         tfa.flash_attention_cuda(tq, tk, tv)
 
 
+@pytest.mark.h100
 def test_kernel_matches_plain_on_h100():
     """The CUDA kernel against its plain version (H100 only)."""
     if not torch.cuda.is_available() or \

@@ -62,3 +62,40 @@ def test_server_without_device_or_cuda_raises(monkeypatch):
         GTRACPipelineServer(cfg, params, layers_per_stage=1)
     # asked explicitly, the CPU is fine
     GTRACPipelineServer(cfg, params, layers_per_stage=1, device="cpu")
+
+
+def test_routing_entry_points_without_device_or_cuda_raise(monkeypatch):
+    """The batched routers default to the card: with no device and no CUDA
+    they raise instead of routing on the CPU; asked explicitly, the CPU is
+    fine. (The numpy backend is host code and takes no device.)"""
+    import numpy as np
+
+    from repro_torch.configs.base import GTRACConfig
+    from repro_torch.core.planner import RoutePlanner
+    from repro_torch.core.routing_torch import route_batched, route_batched_kbest
+    from repro_torch.serving.batch_router import BatchRouter, plan_batched
+    from repro_torch.sim.testbed import build_scaling_testbed
+    cfg = GTRACConfig()
+    table = build_scaling_testbed(30, cfg=cfg).anchor.snapshot(0.0)
+    taus = np.array([0.0, 0.8])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda **d: route_batched(table, 36, cfg, taus, k_max=36, **d),
+        lambda **d: route_batched_kbest(table, 36, cfg, taus, k_max=36,
+                                        k_best=2, **d),
+        lambda **d: plan_batched(table, 36, cfg, taus,
+                                 planner=RoutePlanner(36), **d),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        call(device="cpu")
+    router = BatchRouter(planner=RoutePlanner(36), cfg=cfg, total_layers=36)
+    router.submit(1, 0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        router.route_window(table)
+    router.device = "cpu"
+    router.submit(1, 0.5)
+    assert router.route_window(table)[1].feasible
+    plan_batched(table, 36, cfg, taus, planner=RoutePlanner(36),
+                 backend="numpy")

@@ -1,15 +1,27 @@
-"""K-best routing: the port (``repro_torch``) against the JAX reference.
+"""Batched routing DPs: the port (``repro_torch``) against the JAX reference.
 
-The port's plain DP (``routing_torch.layered_dp_kbest``, the CPU version of
-kernel K1) and backtrack must reproduce the reference's ``layered_dp_kbest``,
-its Pallas ``tropical_route_kbest`` kernel (interpret mode) and its numpy
+K-best (kernel K1): the port's plain DP (``routing_torch.layered_dp_kbest``)
+and backtrack must reproduce the reference's ``layered_dp_kbest``, its
+Pallas ``tropical_route_kbest`` kernel (interpret mode) and its numpy
 oracle ``tropical_route_kbest_ref`` BIT FOR BIT: distK, pedge and prank are
 compared with exact equality (tolerance 0) — tie order included — on
 float, tie-forcing integer, INF-pruned and all-INF cost rows, on invalid
 segments and on R == 0. Plans built by the port's ``plan_batched`` must
 equal the reference's chain for chain and cost for cost on the numpy and
 device backends, including tau de-duplication and the KV-bonus route.
-The kernel itself runs only on an H100 (the last test; skipped elsewhere).
+
+Single best (kernel K2): the port's ``layered_dp`` must equal the
+reference's ``layered_dp`` and both numpy / torch ``tropical_route_ref``
+oracles bit for bit (dist with +inf included, and pred) on float,
+tie-forcing, all-INF and "+inf" (every peer ends at one boundary whose
+start is unreachable) cases, at L in {6, 12, 36} and R == 0. Against the
+Pallas interpret run pred is equal and dist is equal where < 1e38 (that
+kernel clamps dist to INF before its one-hot gather). ``backtrack`` and
+``route_batched`` (with and without a planner, plain DP and ``ops``
+dispatch) return the reference's ids and costs exactly.
+
+The kernels themselves run only on an H100 (the ``*_on_h100`` tests;
+skipped elsewhere).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +32,7 @@ from repro.configs.base import GTRACConfig
 from repro.core import routing_jax as RJ
 from repro.core.planner import RoutePlanner
 from repro.kernels import ref as jref
-from repro.kernels.tropical_route import tropical_route_kbest
+from repro.kernels.tropical_route import tropical_route, tropical_route_kbest
 from repro.serving import batch_router as jbr
 from repro_torch.configs.base import GTRACConfig as TGTRACConfig
 from repro_torch.core import routing_torch as RT
@@ -162,8 +174,10 @@ def test_route_batched_without_planner_matches_planner_path():
     t = _port_layered_anchor(tcfg, L=12, replicas=3, seed=5).snapshot(0.0)
     taus = np.array([0.0, 0.7])
     a = RT.route_batched_kbest(t, 12, tcfg, taus, k_max=12, k_best=4,
-                               planner=TRoutePlanner(12, k_best=4))
-    b = RT.route_batched_kbest(t, 12, tcfg, taus, k_max=12, k_best=4)
+                               planner=TRoutePlanner(12, k_best=4),
+                               device="cpu")
+    b = RT.route_batched_kbest(t, 12, tcfg, taus, k_max=12, k_best=4,
+                               device="cpu")
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
 
@@ -278,6 +292,7 @@ def test_unknown_backend_rejected():
     assert tbr._resolve_backend("auto", "cuda") == "kernel"
 
 
+@pytest.mark.h100
 def test_kernel_matches_plain_on_h100():
     """The CUDA kernel equals the plain DP bit for bit (H100 only)."""
     if not torch.cuda.is_available() or \
@@ -294,5 +309,153 @@ def test_kernel_matches_plain_on_h100():
                                             k_best=4)
         want = ttr.tropical_route_kbest_plain(*args, total_layers=36,
                                               k_best=4)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# Single-best DP (kernel K2) and route_batched
+# ---------------------------------------------------------------------------
+
+
+def _single_case(L, kind, R, rng):
+    """(starts, ends, costs) for one K2 case. "plusinf": every peer spans
+    [1, 2), boundary 1 is unreachable and the costs are INF, so every
+    candidate at boundary 2 is INF + INF = +inf."""
+    if kind == "plusinf":
+        P = 9
+        return (np.ones(P, np.int32), np.full(P, 2, np.int32),
+                np.full((R, P), INF, np.float32))
+    starts, ends = _topology(4 * L, L, (1, 2, 3) if L < 12 else (3, 4, 6),
+                             rng)
+    degenerate = np.array([L // 2, 1], np.int32)      # start == end peers
+    starts = np.concatenate([starts, degenerate])
+    ends = np.concatenate([ends, degenerate])
+    return starts, ends, _costs(R, len(starts), kind, rng)
+
+
+def _port_single(starts, ends, costs, L):
+    d, p = RT.layered_dp(torch.as_tensor(starts), torch.as_tensor(ends),
+                         torch.as_tensor(costs), total_layers=L)
+    return d.numpy(), p.numpy()
+
+
+@pytest.mark.parametrize("L", [6, 12, 36])
+@pytest.mark.parametrize("kind", ["float", "ties", "allinf", "plusinf"])
+def test_single_best_dp_matches_jax_dp_kernel_and_oracles(L, kind):
+    rng = np.random.default_rng(L * 10 + len(kind))
+    starts, ends, costs = _single_case(L, kind, 6, rng)
+    d, p = _port_single(starts, ends, costs, L)
+    if kind == "plusinf":
+        assert np.isposinf(d[:, 2]).all()        # the overflow case is hit
+    js, je, jc = (jnp.asarray(a) for a in (starts, ends, costs))
+    for want in (RJ.layered_dp(js, je, jc, total_layers=L),
+                 jref.tropical_route_ref(starts, ends, costs, L),
+                 [t.numpy() for t in tref.tropical_route_ref(
+                     starts, ends, costs, L)]):
+        np.testing.assert_array_equal(d, np.asarray(want[0]), err_msg="dist")
+        np.testing.assert_array_equal(p, np.asarray(want[1]), err_msg="pred")
+    kd, kp = tropical_route(js, je, jc, total_layers=L, interpret=True,
+                            blk_r=8)
+    np.testing.assert_array_equal(p, np.asarray(kp))
+    kd = np.asarray(kd)
+    np.testing.assert_array_equal(np.where(d < 1e38, d, 0),
+                                  np.where(kd < 1e38, kd, 0))
+    # the dispatch on a CPU tensor takes the plain version
+    od, op = ops.tropical_route(torch.as_tensor(starts),
+                                torch.as_tensor(ends),
+                                torch.as_tensor(costs), total_layers=L)
+    np.testing.assert_array_equal(od.numpy(), d)
+    np.testing.assert_array_equal(op.numpy(), p)
+
+
+def test_single_best_empty_batch():
+    starts, ends = _topology(10, 6, (2, 3), np.random.default_rng(0))
+    costs = np.zeros((0, 10), np.float32)
+    d, p = _port_single(starts, ends, costs, 6)
+    assert d.shape == p.shape == (0, 7)
+    jd, jp = tropical_route(jnp.asarray(starts), jnp.asarray(ends),
+                            jnp.asarray(costs), total_layers=6,
+                            interpret=True)
+    np.testing.assert_array_equal(d, np.asarray(jd))
+    np.testing.assert_array_equal(p, np.asarray(jp))
+    ids, c = RT.route_batched(None, 6, TGTRACConfig(), np.zeros(0), k_max=6)
+    jids, jc = RJ.route_batched(None, 6, GTRACConfig(), np.zeros(0), k_max=6)
+    np.testing.assert_array_equal(ids, jids)
+    np.testing.assert_array_equal(c, jc)
+    assert ids.dtype == jids.dtype and c.dtype == jc.dtype
+
+
+def test_single_best_backtrack_matches_reference():
+    rng = np.random.default_rng(4)
+    starts, ends, costs = _single_case(12, "ties", 6, rng)
+    _, pred = _port_single(starts, ends, costs, 12)
+    for k_max in (0, 4, 12):
+        got = RT.backtrack(torch.as_tensor(starts), torch.as_tensor(pred),
+                           total_layers=12, k_max=k_max).numpy()
+        want = RJ.backtrack(jnp.asarray(starts), jnp.asarray(pred),
+                            total_layers=12, k_max=k_max)
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("seed,trust_range", [(0, (0.5, 1.0)),
+                                              (3, (0.9, 1.0))])
+def test_route_batched_matches_reference(use_kernel, seed, trust_range):
+    """Peer ids and f32 costs equal the reference's, with the planner's
+    cached topology and without; ``use_kernel`` goes through ``ops``
+    (the plain DP for CPU tensors)."""
+    cfg, tcfg = GTRACConfig(), TGTRACConfig()
+    t_ref = build_layered_anchor(cfg, L=12, replicas=4, seed=seed,
+                                 trust_range=trust_range).snapshot(0.0)
+    t_port = _port_layered_anchor(tcfg, L=12, replicas=4, seed=seed,
+                                  trust_range=trust_range).snapshot(0.0)
+    taus = np.array([0.0, 0.6, 0.8, 0.95, 0.999])
+    for k_max in (6, 12):
+        want = RJ.route_batched(t_ref, 12, cfg, taus, k_max=k_max,
+                                use_kernel=use_kernel,
+                                planner=RoutePlanner(12), interpret=True)
+        for planner in (TRoutePlanner(12), None):
+            got = RT.route_batched(t_port, 12, tcfg, taus, k_max=k_max,
+                                   use_kernel=use_kernel, planner=planner,
+                                   device="cpu")
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, np.asarray(w))
+    assert (want[1] >= 1e38).any() and (want[1] < 1e38).any()
+
+
+def test_route_csr_buckets_peers_by_end_boundary():
+    """Kernel K2's CSR (built by torch code the CPU reaches): boundary b's
+    bucket holds exactly the peers ending at b, in ascending index order;
+    peers ending outside [1, L] are in no bucket; starts are clamped."""
+    rng = np.random.default_rng(2)
+    L = 12
+    starts = rng.integers(-1, L + 2, 50).astype(np.int32)
+    ends = rng.integers(-1, L + 3, 50).astype(np.int32)
+    off, order, sstart = (t.numpy() for t in ttr.route_csr(
+        torch.as_tensor(starts), torch.as_tensor(ends), L))
+    assert off.shape == (L + 2,) and off[0] == off[1] == 0
+    for b in range(1, L + 1):
+        bucket = order[off[b]:off[b + 1]]
+        np.testing.assert_array_equal(bucket, np.nonzero(ends == b)[0])
+    np.testing.assert_array_equal(sstart, np.clip(starts[order], 0, L))
+    assert sorted(order.tolist()) == list(range(50))
+
+
+@pytest.mark.h100
+def test_tropical_route_kernel_matches_plain_on_h100():
+    """Kernel K2 equals the plain DP bit for bit (H100 only)."""
+    if not torch.cuda.is_available() or \
+            torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("needs an sm_90 GPU (H100): the CUDA kernel has no "
+                    "CPU mode")
+    rng = np.random.default_rng(12)
+    for L, kind in ((36, "float"), (36, "ties"), (12, "allinf"),
+                    (6, "plusinf")):
+        starts, ends, costs = _single_case(L, kind, 70, rng)
+        args = [torch.as_tensor(a, device="cuda")
+                for a in (starts, ends, costs)]
+        got = ttr.tropical_route_cuda(*args, total_layers=L)
+        want = ttr.tropical_route_plain(*args, total_layers=L)
         for g, w in zip(got, want):
             assert torch.equal(g, w)

@@ -9,7 +9,8 @@ step. Compared: the emitted tokens, every ``ServeMetrics`` field
 (tokens, failures, repairs, rerouted, infeasible, prefill chunks and
 tokens, KV warm hits, TTFT, emission stamps) and ``latency_summary`` — for
 ``run_queue`` with disaggregation off and on (one long prompt prefilled in
-chunks), and for per-token ``generate``. The reference test of the same
+chunks), and for per-token ``generate`` under every routing policy (G-TRAC
+and the sp / mr / naive / larac baselines). The reference test of the same
 path is ``tests/test_serving.py``'s routed-pipeline tests.
 
 The router backends compared are the device DP (the reference's ``jnp``
@@ -123,6 +124,30 @@ def test_generate_matches_reference(models):
         assert dataclasses.asdict(tmet) == dataclasses.asdict(met)
 
 
+@pytest.mark.parametrize("algorithm", ["gtrac", "sp", "mr", "naive",
+                                       "larac"])
+def test_generate_algorithms_match_reference(models, algorithm):
+    """``generate`` under each routing policy: the same tokens and every
+    ServeMetrics field, three streams in a row on one server (trust moves
+    between them)."""
+    cfg, params, tparams, stage_fns = models
+    srv = GTRACPipelineServer(cfg, params, layers_per_stage=2, seed=1,
+                              algorithm=algorithm)
+    srv.stage_fns = stage_fns
+    tcfg = tget_config("gpt2-large").reduced(**REDUCED)
+    tsrv = TGTRACPipelineServer(tcfg, tparams, layers_per_stage=2, seed=1,
+                                algorithm=algorithm, device="cpu")
+    mets = []
+    for rid, p in enumerate(_prompts()[:3]):
+        out, met = srv.generate(p, max_new_tokens=4, request_id=rid)
+        tout, tmet = tsrv.generate(p, max_new_tokens=4, request_id=rid)
+        np.testing.assert_array_equal(tout, out)
+        assert dataclasses.asdict(tmet) == dataclasses.asdict(met)
+        mets.append(tmet)
+    assert sum(m.tokens for m in mets) > 0
+    assert tsrv.bed.now == srv.bed.now
+
+
 def test_sampled_generate_matches_reference(models):
     """Temperature sampling draws from the testbed RNG on both sides."""
     srv, tsrv = _servers(models, {}, "numpy", "auto")
@@ -161,8 +186,7 @@ def test_later_slice_features_raise(models):
     for kw, algo in (({"anchor_shards": 2}, "gtrac"),
                      ({"gossip_enabled": True}, "gtrac"),
                      ({"hedge_enabled": True}, "gtrac"),
-                     ({"control_plane": "procs"}, "gtrac"),
-                     ({}, "sp")):
+                     ({"control_plane": "procs"}, "gtrac")):
         with pytest.raises(NotImplementedError, match="later slice"):
             TGTRACPipelineServer(tcfg, tparams, layers_per_stage=2,
                                  gcfg=TGTRACConfig(**kw), algorithm=algo,
