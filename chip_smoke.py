@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
-Phases, each of which fails the run (non-zero exit) when it fails:
+Phases, each of which fails the run (non-zero exit) when it fails (they
+run in the order 1, 10, 2, 11-13, 3-9: the newest paths first, so that a
+fault there shows before the long routing phases):
 
 1. build  — compiles the hand-written kernels from ``src/repro_torch/csrc``
    with nvcc for sm_90a, in parallel (one nvcc per source).
@@ -17,9 +19,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    all-INF costs, and on a topology where every peer ends at one boundary
    (the +inf case); K3 ``flash_attention`` within 2e-4 (f32) / 2e-2 (bf16)
    absolute at Hq = Hkv = 20, D = 64, S in {8, 100, 128, 300, 1024}, plus
-   GQA and non-causal shapes. Each kernel is timed beside its plain version
-   and its bound (and K3 beside ``scaled_dot_product_attention``, a
-   yardstick the port never calls).
+   GQA and non-causal shapes and the engine's prefill shapes (GPT-2 Large
+   B = 4, S = 1024; TinyLlama B = 4, S = 2048, Hq = 32, Hkv = 4). Each
+   kernel is timed beside its plain version and its bound (and K3 beside
+   ``scaled_dot_product_attention``, a yardstick the port never calls).
 3. main path — full-width GPT-2 Large (36 layers, d_model 1280, vocab
    50257, random weights from a seed) served through
    ``GTRACPipelineServer.submit`` + ``run_queue`` with ``attn_impl="flash"``,
@@ -52,6 +55,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    failures, repairs, infeasible, wall time and K3 launches (one per layer
    of every stage forward). In f32 the kernel path's tokens and
    ServeMetrics must equal the plain path's for every policy.
+10. K4 — ``decode_attention`` against its plain version on the card within
+   2e-4 (f32) / 2e-2 (bf16) absolute: GPT-2 Large's decode shape (B = 4,
+   Hq = Hkv = 20, D = 64, S = 1120, kv_len in {1, 37, 1056, 1120}),
+   TinyLlama's (B = 4, Hq = 32, Hkv = 4, D = 64, S = 2144), a ragged
+   S = 1000 and small shapes; each timed beside its plain version, its
+   bound and ``scaled_dot_product_attention`` with a live mask (a
+   yardstick the port never calls).
+11. KV-cache engine — ``ServingEngine.run_batch`` at full width, bf16,
+   ``attn_impl="flash"``: gpt2-large with 4 prompts of 8 tokens and 4 of
+   1024, tinyllama-1.1b with 4 prompts of 2048, 32 new tokens each, after
+   a warm-up run of the same requests. Fails
+   unless every stream gets its tokens, K4 launched once per layer of every
+   decode step and K3 once per layer of every prefill, and the cache's
+   bytes equal ``cache_bytes``. Reports tokens/s, prefill ms, decode ms
+   per step and peak device memory.
+12. engine f32 parity — the same engine in float32 through the kernels (K3
+   + K4) and through the plain path (``attn_impl="xla"``) on the card, for
+   a gpt2-large.reduced-sized model and full-width TinyLlama, 8 new tokens:
+   the greedy tokens must be identical.
+13. engine profile — ``torch.profiler`` over decode steps of each model:
+   the device's busy share and K4's device time against the weight casts
+   and the matmuls.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and the result line
@@ -87,6 +112,11 @@ GEN_REQUESTS = 4
 GEN_TOKENS = 4
 #: the K2 timing row the kernels line reports: (topology, R)
 K2_ROW = ("scaling1000", 64)
+#: the KV-cache engine's runs: (arch, [(prompt length, requests), ...])
+ENGINE_RUNS = (("gpt2-large", ((8, 4), (1024, 4))),
+               ("tinyllama-1.1b", ((2048, 4),)))
+ENGINE_TOKENS = 32
+PARITY_TOKENS = 8
 
 
 def sync() -> None:
@@ -117,9 +147,10 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def device_ms(fn, kernel: str, iters: int = 20):
-    """Device-only time per launch of the kernel named ``kernel`` over
-    ``iters`` calls of ``fn``, from ``torch.profiler``; None when the
-    profiler records no device activity."""
+    """Device-only time per launch of the kernel whose profiler name
+    contains ``kernel`` (e.g. ``"route_kernel("``) over ``iters`` calls of
+    ``fn``, from ``torch.profiler``; None when the profiler records no
+    device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -131,7 +162,7 @@ def device_ms(fn, kernel: str, iters: int = 20):
             fn()
         torch.cuda.synchronize()
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and f"{kernel}(" in e.key:
+        if e.device_type == DeviceType.CUDA and kernel in e.key:
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = getattr(e, "self_cuda_time_total", 0)
@@ -160,7 +191,8 @@ def wall_ms(fn, iters: int, warmup: int = 2) -> float:
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build_all(["tropical_route.cu", "flash_attention.cu"])
+    logs = build.build_all(["tropical_route.cu", "flash_attention.cu",
+                            "decode_attention.cu"])
     secs = time.perf_counter() - t0
     for src, text in logs.items():
         for line in text.splitlines():
@@ -350,7 +382,7 @@ def phase_k2():
                 rows[(topo, R)]["device_ms_per_launch"] = device_ms(
                     lambda: tr.tropical_route_cuda(s, e, c, total_layers=L,
                                                    csr=csr),
-                    "route_kernel")
+                    "route_kernel(")
             log({"k2_time": {"topology": topo, "R": R, "P": P, "L": L,
                              **rows[(topo, R)]}})
     return rows
@@ -382,6 +414,9 @@ def phase_k3():
               for S in (8, 100, 128, 200, 300, 1024)]
     shapes += [(2, 200, 8, 2, 128, True), (2, 96, 4, 2, 32, False),
                (1, 77, 6, 3, 16, True)]
+    # the engine's prefill shapes: GPT-2 Large's 4 x 1024 and TinyLlama's
+    # 4 x 2048 at G = 8
+    shapes += [(4, 1024, 20, 20, 64, True), (4, 2048, 32, 4, 64, True)]
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, Hq, Hkv, D, causal in shapes:
@@ -401,7 +436,7 @@ def phase_k3():
                     f"causal={causal}: max abs err {err} > {tol[dtype]}")
             row = {"dtype": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv,
                    "D": D, "causal": causal, "max_abs_err": err}
-            if Hq == Hkv == 20 and D == 64:
+            if B == 1 and Hq == Hkv == 20 and D == 64:
                 qt, kt, vt = (t.transpose(1, 2).contiguous()
                               for t in (q, k, v))
                 row["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(
@@ -803,6 +838,318 @@ def phase_generate_algorithms(cfg, params):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-13: kernel K4 and the KV-cache engine
+# ---------------------------------------------------------------------------
+
+
+def k4_bound_ms(B, Hq, Hkv, D, kv_len, dtype) -> tuple:
+    """Least time for decode attention on this card: the live K and V rows,
+    q and kv_len read once and the output written once, against the
+    multiply-adds of QK^T and PV over the live rows at the peak rate of the
+    input type."""
+    import torch
+    size = 2 if dtype == torch.bfloat16 else 4
+    live = int(sum(kv_len))
+    nbytes = size * (2 * live * Hkv * D + 2 * B * Hq * D) + 4 * B
+    flops = 4 * Hq * D * live
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
+def phase_k4():
+    """K4 against its plain version at the engine's decode shapes, a ragged
+    capacity and small shapes; timed beside its plain version, its bound,
+    SDPA with a live mask, and its device-only time per launch."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    # (name, B, S, Hq, Hkv, D, kv_len, timed)
+    shapes = [("gpt2-large", 4, 1120, 20, 20, 64, (1, 37, 1056, 1120), True),
+              ("tinyllama-1.1b", 4, 2144, 32, 4, 64, (1, 37, 2080, 2144),
+               True),
+              ("ragged", 3, 1000, 16, 2, 128, (1, 129, 1000), True),
+              ("small-gqa", 2, 64, 4, 2, 32, (1, 64), False),
+              ("small-mha", 1, 128, 5, 5, 16, (77,), False),
+              ("small-mqa", 2, 200, 8, 1, 64, (200, 3), False)]
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name_t = str(dtype).replace("torch.", "")
+        for name, B, S, Hq, Hkv, D, lens, timed in shapes:
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device=DEVICE,
+                                   dtype=torch.float32).to(dtype)
+            q, k, v = randn(B, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+            got = da.decode_attention_cuda(q, k, v, kv_len)
+            want = da.decode_attention_plain(q, k, v, kv_len)
+            sync()
+            err = float((got.float() - want.float()).abs().max())
+            if not err <= tol[dtype]:
+                raise AssertionError(
+                    f"K4 {name_t} {name} B={B} S={S} Hq={Hq} Hkv={Hkv} "
+                    f"D={D} kv_len={lens}: max abs err {err} > {tol[dtype]}")
+            row = {"dtype": name_t, "shape": name, "B": B, "S": S, "Hq": Hq,
+                   "Hkv": Hkv, "D": D, "kv_len": list(lens),
+                   "max_abs_err": err}
+            if timed:
+                qt = q[:, :, None, :]
+                kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+                live = (torch.arange(S, device=DEVICE)[None, :]
+                        < kv_len[:, None])[:, None, None, :]
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=live, enable_gqa=True)
+                row["sdpa_max_abs_err"] = float(
+                    (sdpa()[:, :, 0].float() - want.float()).abs().max())
+                row["ms"] = cuda_ms(lambda: da.decode_attention_cuda(
+                    q, k, v, kv_len), iters=200)
+                row["device_ms_per_launch"] = device_ms(
+                    lambda: da.decode_attention_cuda(q, k, v, kv_len),
+                    "decode_kernel<")
+                row["plain_ms"] = cuda_ms(lambda: da.decode_attention_plain(
+                    q, k, v, kv_len), iters=20)
+                row["library_ms"] = cuda_ms(sdpa, iters=100)
+                row["bound_ms"], row["bound_by"] = k4_bound_ms(
+                    B, Hq, Hkv, D, lens, dtype)
+                row["ctas"] = B * Hkv
+                rows[(name_t, name)] = row
+            log({"k4": row})
+    return rows
+
+
+def engine_requests(eng, vocab: int, groups, new_tokens: int):
+    """Submit ``groups`` of (prompt length, count) requests, prompts drawn
+    from the seed."""
+    import numpy as np
+    from repro_torch.serving.api import SubmitSpec
+    rng = np.random.default_rng(SEED)
+    return [eng.submit(SubmitSpec(prompt=rng.integers(1, vocab, size=n),
+                                  max_new_tokens=new_tokens))
+            for n, count in groups for _ in range(count)]
+
+
+def timed_engine(cfg, params):
+    """A ``ServingEngine`` whose prefill and decode calls are timed (each
+    ends synchronised) and whose caches are measured."""
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, device=DEVICE)
+    eng.prefill_s, eng.decode_s, eng.cache_bytes_seen = [], [], []
+    prefill, decode = eng._prefill, eng._decode
+
+    def timed_prefill(p, toks, cap):
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = prefill(p, toks, cap)
+        sync()
+        eng.prefill_s.append(time.perf_counter() - t0)
+        eng.cache_bytes_seen.append(
+            (tuple(toks.shape), cap,
+             sum(cache[n].numel() * cache[n].element_size()
+                 for n in ("k", "v")) + 4))
+        return logits, cache
+
+    def timed_decode(p, token, cache):
+        sync()
+        t0 = time.perf_counter()
+        out = decode(p, token, cache)
+        sync()
+        eng.decode_s.append(time.perf_counter() - t0)
+        return out
+
+    eng._prefill, eng._decode = timed_prefill, timed_decode
+    return eng
+
+
+def engine_params(arch, gpt2_params):
+    """Full-width parameters: the main path's GPT-2 Large ones, or
+    TinyLlama's made from the seed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash",
+                              remat=False)
+    if arch == "gpt2-large":
+        return cfg, gpt2_params
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    return cfg, init_params(cfg, gen, DEVICE)
+
+
+def phase_engine(gpt2_params):
+    """The KV-cache engine at full width, bf16, through K3 and K4."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.kv_cache import cache_bytes
+    out = {}
+    for arch, groups in ENGINE_RUNS:
+        cfg, params = engine_params(arch, gpt2_params)
+        # warm-up run with the timed run's requests: every prefill and
+        # decode shape of the timed window is seen once before it
+        warm = timed_engine(cfg, params)
+        engine_requests(warm, cfg.vocab_size, groups, ENGINE_TOKENS)
+        warm.run_batch()
+        sync()
+        eng = timed_engine(cfg, params)
+        reqs = engine_requests(eng, cfg.vocab_size, groups, ENGINE_TOKENS)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        done = eng.run_batch()
+        sync()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for r in done:
+            if len(r.output) != ENGINE_TOKENS or not all(
+                    0 <= t < cfg.vocab_size for t in r.output):
+                raise AssertionError(f"engine {arch}: request "
+                                     f"{r.request_id} gave {r.output}")
+        if len(done) != len(reqs):
+            raise AssertionError(f"engine {arch}: {len(done)} of "
+                                 f"{len(reqs)} requests served")
+        L = cfg.num_layers
+        if counts["decode_attention"] != L * eng.decode_steps or \
+                eng.decode_steps != len(groups) * (ENGINE_TOKENS - 1):
+            raise AssertionError(
+                f"engine {arch}: K4 launched {counts['decode_attention']} "
+                f"times for {eng.decode_steps} decode steps x {L} layers")
+        if counts["flash_attention"] != L * eng.prefills or \
+                eng.prefills != len(groups):
+            raise AssertionError(
+                f"engine {arch}: K3 launched {counts['flash_attention']} "
+                f"times for {eng.prefills} prefills x {L} layers")
+        for shape, cap, nbytes in eng.cache_bytes_seen:
+            if nbytes != cache_bytes(cfg, shape[0], cap):
+                raise AssertionError(f"engine {arch}: cache of {nbytes} "
+                                     f"bytes, cache_bytes says "
+                                     f"{cache_bytes(cfg, shape[0], cap)}")
+        tokens = sum(len(r.output) for r in done)
+        row = {"arch": arch, "layers": L, "d_model": cfg.d_model,
+               "heads": [cfg.num_heads, cfg.num_kv_heads],
+               "vocab": cfg.vocab_size,
+               "activation_dtype": cfg.activation_dtype,
+               "groups": [list(g) for g in groups],
+               "new_tokens": ENGINE_TOKENS, "tokens": tokens, "wall_s": wall,
+               "tokens_per_s": tokens / wall,
+               "prefill_ms": [t * 1e3 for t in eng.prefill_s],
+               "decode_ms_per_step_median": sorted(eng.decode_s)[
+                   len(eng.decode_s) // 2] * 1e3,
+               "decode_steps": eng.decode_steps, "prefills": eng.prefills,
+               "launches": counts,
+               "cache_bytes": [[list(s), c, b] for s, c, b in
+                               eng.cache_bytes_seen],
+               "max_memory_allocated": peak}
+        out[arch] = row
+        log({"engine": row})
+    return out
+
+
+def engine_tokens(cfg, params, groups, new_tokens):
+    eng = timed_engine(cfg, params)
+    engine_requests(eng, cfg.vocab_size, groups, new_tokens)
+    sync()
+    t0 = time.perf_counter()
+    done = eng.run_batch()
+    sync()
+    return [r.output for r in done], time.perf_counter() - t0
+
+
+def phase_engine_parity(gpt2_params):
+    """f32: the kernel path (K3 + K4) and the plain path (attn_impl="xla")
+    give the same greedy tokens, on a gpt2-large.reduced-sized model and on
+    full-width TinyLlama."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    small = dataclasses.replace(get_config("gpt2-large").reduced(
+        num_layers=4), attn_impl="flash")
+    cases = [("gpt2-large.reduced", small,
+              init_params(small, gen, DEVICE), ((8, 3), (200, 2))),
+             ("tinyllama-1.1b", *engine_params("tinyllama-1.1b",
+                                                gpt2_params),
+              ((16, 2), (320, 2)))]
+    for name, cfg, params, groups in cases:
+        cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+        k_out, k_s = engine_tokens(cfg32, params, groups, PARITY_TOKENS)
+        p_out, p_s = engine_tokens(dataclasses.replace(cfg32,
+                                                       attn_impl="xla"),
+                                   params, groups, PARITY_TOKENS)
+        if k_out != p_out or any(len(o) != PARITY_TOKENS for o in k_out):
+            raise AssertionError(f"engine f32 {name}: kernel path {k_out} "
+                                 f"vs plain path {p_out}")
+        log({"engine_f32_parity": {"model": name, "requests": len(k_out),
+                                   "equal": True, "kernel_path_s": k_s,
+                                   "plain_path_s": p_s}})
+
+
+def phase_engine_profile(gpt2_params):
+    """Device time by kernel over decode steps of each engine model
+    (batch 4, cache filled by a prefill outside the profile): the device's
+    busy share of the wall time and K4's share against the weight casts
+    (``aten::copy_``) and the matmuls (``aten::mm``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.api import build_model
+    steps = 8
+    for arch, groups in ENGINE_RUNS:
+        cfg, params = engine_params(arch, gpt2_params)
+        model = build_model(cfg)
+        S = groups[-1][0]
+        toks = torch.randint(1, cfg.vocab_size, (4, S), device=DEVICE,
+                             generator=torch.Generator(device=DEVICE)
+                             .manual_seed(SEED))
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, tokens=toks,
+                                          capacity=S + steps + 1)
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            logits, cache = model.decode_step(params, cur, cache)  # warm
+            sync()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                    logits, cache = model.decode_step(params, cur, cache)
+                sync()
+                wall = time.perf_counter() - t0
+        kernels, ops_ms = {}, {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0)
+            if t > 0:
+                side = kernels if e.device_type == DeviceType.CUDA else ops_ms
+                side[e.key] = (t / 1e3, e.count)
+        if not kernels:
+            log({"engine_profile": {"arch": arch, "profile": "not measured "
+                                    "(no device activity recorded)"}})
+            continue
+        busy = sum(t for t, _ in kernels.values())
+        k4 = [(t, n) for k, (t, n) in kernels.items() if "decode_kernel" in k]
+        k4_ms = sum(t for t, _ in k4)
+        log({"engine_profile": {
+            "arch": arch, "decode_steps": steps, "batch": 4,
+            "cache_rows": S, "wall_s": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall * 1e3),
+            "k4_ms": k4_ms, "k4_launches": sum(n for _, n in k4),
+            "k4_share_of_busy": k4_ms / busy,
+            "copy_ms": ops_ms.get("aten::copy_", (0.0, 0))[0],
+            "mm_ms": ops_ms.get("aten::mm", (0.0, 0))[0],
+            "top_ops_ms_calls": [[k[:60], t, n] for k, (t, n) in sorted(
+                ops_ms.items(), key=lambda kv: -kv[1][0])[:8]],
+            "top_kernels_ms_calls": [[k[:60], t, n] for k, (t, n) in sorted(
+                kernels.items(), key=lambda kv: -kv[1][0])[:8]]}})
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -830,6 +1177,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     phase_build()
+    k4 = phase_k4()
     k1 = phase_k1()
     k2 = phase_k2()
     k3 = phase_k3()
@@ -844,6 +1192,9 @@ def main() -> int:
                       for w in d.values()])
     log(f"gpt2-large: {n_params} parameters (f32) on "
         f"{DEVICE}")
+    engine = phase_engine(params)
+    phase_engine_parity(params)
+    phase_engine_profile(params)
     srv, counts, tps = phase_main(cfg, params)
     phase_f32_parity(cfg, params)
     phase_routing(srv)
@@ -851,6 +1202,7 @@ def main() -> int:
     _, _, k2_counts = phase_decision()
     phase_ssr()
     phase_generate_algorithms(cfg, params)
+    k4_row = k4[("bfloat16", "gpt2-large")]
 
     kern = [
         {"name": "tropical_route_kbest", "route": "cuda",
@@ -878,11 +1230,22 @@ def main() -> int:
          "bound_ms": k3[("bfloat16", 200)]["bound_ms"],
          "bound_by": k3[("bfloat16", 200)]["bound_by"],
          "library_ms": k3[("bfloat16", 200)]["library_ms"]},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:65",
+         "launches": sum(r["launches"]["decode_attention"]
+                         for r in engine.values()),
+         "max_abs_err": k4_row["max_abs_err"], "ms": k4_row["ms"],
+         "plain_ms": k4_row["plain_ms"], "bound_ms": k4_row["bound_ms"],
+         "bound_by": k4_row["bound_by"],
+         "library_ms": k4_row["library_ms"]},
     ]
     log(f"end-to-end: {tps} tokens/s; total {time.perf_counter() - t_start}"
         " s; kernel rows: K1 at R=1, K2 at R=64 on the N=1000 scaling "
         "testbed (its launches: route_batched), K3 at bf16 S=200 (B=1, "
-        "H=20, D=64)")
+        "H=20, D=64), K4 at bf16 on GPT-2 Large's decode shape (B=4, "
+        "H=20, D=64, S=1120, kv_len 1/37/1056/1120; its launches: both "
+        "engine runs)")
     log(card_line())
     log({"kernels": kern})
     log({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,9 @@
 """Config registry: ``get_config(name)`` / ``--arch <id>`` resolution.
 
-Port of ``repro.configs``. This slice of the port serves the paper's own
-model, gpt2-large; the other architectures join with their model families.
+Port of ``repro.configs``. The port serves the paper's own model,
+gpt2-large, and tinyllama-1.1b (RoPE, RMSNorm, SwiGLU, GQA 32/4) through
+the KV-cache engine; the other architectures join with their model
+families.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from repro_torch.configs.base import GTRACConfig, ModelConfig  # noqa: F401
 _ARCH_MODULES: Dict[str, str] = {
     # the paper's own evaluation model (GPT-2 Large, 36 layers)
     "gpt2-large": "gpt2_large",
+    # llama2-arch dense LM: RoPE, RMSNorm, SwiGLU, GQA 32/4
+    "tinyllama-1.1b": "tinyllama_1_1b",
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)

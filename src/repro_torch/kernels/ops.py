@@ -1,18 +1,20 @@
 """Kernel dispatch by device.
 
 Port of ``repro.kernels.ops`` for the kernels ported so far (K1
-``tropical_route_kbest``, K2 ``tropical_route`` and K3
-``flash_attention``). The rule is the tensor's device, not a fallback: a
-CPU tensor goes to the kernel's plain PyTorch version (that is how the
-tests run without a GPU); a CUDA tensor launches the hand-written kernel,
-and a kernel that cannot take the input raises instead of quietly running
-the plain version. Each CUDA wrapper
-counts its launches in ``<wrapper>.launches``.
+``tropical_route_kbest``, K2 ``tropical_route``, K3 ``flash_attention``
+and K4 ``decode_attention``). The rule is the tensor's device, not a
+fallback: a CPU tensor goes to the kernel's plain PyTorch version (that is
+how the tests run without a GPU); a CUDA tensor launches the hand-written
+kernel, and a kernel that cannot take the input raises instead of quietly
+running the plain version. Each CUDA wrapper counts its launches in
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.tropical_route import (tropical_route_cuda,
@@ -25,6 +27,7 @@ CUDA_KERNELS = {
     "tropical_route_kbest": tropical_route_kbest_cuda,
     "tropical_route": tropical_route_cuda,
     "flash_attention": flash_attention_cuda,
+    "decode_attention": decode_attention_cuda,
 }
 
 
@@ -41,6 +44,14 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if _on_cpu(q):
         return flash_attention_plain(q, k, v, causal=causal)
     return flash_attention_cuda(q, k, v, causal=causal)
+
+
+def decode_attention(q, cache_k, cache_v, kv_len):
+    """q (B,Hq,D); caches (B,S,Hkv,D); kv_len (B,) int32 -> (B,Hq,D).
+    Contract: 1 <= kv_len[b] <= S (``kernels/decode_attention.py``)."""
+    if _on_cpu(q):
+        return decode_attention_plain(q, cache_k, cache_v, kv_len)
+    return decode_attention_cuda(q, cache_k, cache_v, kv_len)
 
 
 def tropical_route(starts, ends, costs, *, total_layers: int, csr=None):

@@ -2,6 +2,8 @@
 
 Port of ``repro.kernels.ref`` for the kernels ported so far:
 ``attention_ref`` (naive full-softmax GQA attention),
+``decode_attention_ref`` (one-token GQA attention over a live-length
+masked KV cache: K4's plain version under the oracle's name),
 ``tropical_route_ref`` (the single-best layered DP) and
 ``tropical_route_kbest_ref`` (the K-best layered DP with one stable sort
 per boundary). The tests hold them against the reference oracles, and the
@@ -12,6 +14,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.kernels.decode_attention import decode_attention_plain
 
 INF = 3.0e38
 
@@ -33,6 +37,12 @@ def attention_ref(q, k, v, *, causal: bool = True):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+#: K4's plain version is the oracle's function (f32 scores, -inf past
+#: ``kv_len[b]``, f32 softmax, one cast at the end); the tests hold it
+#: against the reference oracle
+decode_attention_ref = decode_attention_plain
 
 
 def tropical_route_ref(starts, ends, costs, total_layers: int):

@@ -1,18 +1,23 @@
-"""Serving launcher: the G-TRAC trust-routed pipeline on PyTorch.
+"""Serving launcher: the KV-cache engine or the G-TRAC trust-routed
+pipeline, on PyTorch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-large \
         --windowed --attn-impl flash
     PYTHONPATH=src python -m repro_torch.launch.serve --algorithm sp
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
+        --arch tinyllama-1.1b
 
-Port of ``repro.launch.serve`` for the ``gtrac`` mode: the window-batched
-router (``--windowed``, optionally ``--disaggregate``; G-TRAC only) or
-per-token ``generate`` under any ``--algorithm``. Runs on ``cuda`` unless
-``--device cpu``. Weights
-are random, made from ``--seed`` with ``init_params`` (the reference's
-distributions), so the tokens are meaningless; the routing, trust, repair
-and stage compute are the real thing. The reference's plain engine mode,
-sharded / process-backed anchors, gossip and relay planes, hedging and
-trace export join the port in later slices.
+Port of ``repro.launch.serve``. ``--mode gtrac`` (the default): the
+window-batched router (``--windowed``, optionally ``--disaggregate``;
+G-TRAC only) or per-token ``generate`` under any ``--algorithm``.
+``--mode engine``: the plain KV-cache ``ServingEngine`` (prefill through
+kernel K3, every decode step through kernel K4 with
+``--attn-impl flash``), which also serves RoPE models (tinyllama-1.1b).
+Runs on ``cuda`` unless ``--device cpu``. Weights are random, made from
+``--seed`` with ``init_params`` (the reference's distributions), so the
+tokens are meaningless; the routing, trust, repair and model compute are
+the real thing. Sharded / process-backed anchors, gossip and relay planes,
+hedging and trace export join the port in later slices.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import GTRACConfig
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import init_params
+from repro_torch.serving.api import SubmitSpec
+from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.gtrac_serve import GTRACPipelineServer, latency_summary
 from repro_torch.sim.workload import serving_workload
 
@@ -37,6 +44,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="gpt2-large")
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's tiny test config with 4 layers")
+    ap.add_argument("--mode", default="gtrac", choices=["engine", "gtrac"],
+                    help="engine: the plain KV-cache engine; gtrac: the "
+                         "trust-routed pipeline server")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without it)")
     ap.add_argument("--attn-impl", default="flash", choices=["xla", "flash"],
@@ -90,6 +100,26 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
     rng = np.random.default_rng(args.seed)
+
+    if args.mode == "engine":
+        eng = ServingEngine(cfg, params, device=device)
+        for _ in range(args.requests):
+            prompt = rng.integers(1, cfg.vocab_size, size=args.prompt_len)
+            eng.submit(SubmitSpec(prompt=prompt,
+                                  max_new_tokens=args.tokens))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run_batch()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        for r in done:
+            print(f"req {r.request_id}: {r.prompt.tolist()} -> {r.output}")
+        tokens = sum(len(r.output) for r in done)
+        print(f"device {device}: {tokens} tokens in {wall:.3f} s wall "
+              f"({tokens / max(wall, 1e-9):.1f} tokens/s), "
+              f"{eng.prefills} prefills, {eng.decode_steps} decode steps, "
+              f"kernel launches {ops.launch_counts()}")
+        return
 
     kw = {}
     if args.prefill_chunk is not None:

@@ -11,6 +11,10 @@ Port of ``repro.models.attention`` for the dense decoder of this slice:
   hand-written CUDA kernel for tensors on the card, its plain version on
   the CPU.
 
+The KV-cache decode step has the same two routes: ``decode_attend`` sends
+``flash`` to kernel K4 (``kernels.ops.decode_attention``) and ``xla`` to
+``attention_direct`` with ``kv_len``, the reference's own decode math.
+
 GQA is computed natively with grouped einsums — KV heads are never
 materially repeated.
 """
@@ -51,10 +55,11 @@ def out_proj(cfg: ModelConfig, p: Params, o):
     return o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"].to(o.dtype)
 
 
-def attention_direct(q, k, v, *, causal: bool, q_offset: int = 0,
+def attention_direct(q, k, v, *, causal: bool, q_offset=0,
                      kv_len=None, window: int = 0):
     """q (B,Sq,Hq,D); k,v (B,Sk,Hkv,D) -> (B,Sq,Hq,D).
 
+    ``q_offset`` (int or (B,)) is the position of the first query row.
     ``kv_len`` (scalar or (B,)) masks out key positions >= kv_len.
     ``window`` > 0 restricts attention to the trailing window.
     """
@@ -67,14 +72,15 @@ def attention_direct(q, k, v, *, causal: bool, q_offset: int = 0,
     qg = q.reshape(B, Sq, Hkv, G, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                           k.float()) * scale
-    q_pos = q_offset + torch.arange(Sq, device=dev)
+    q_pos = (torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
+             + torch.arange(Sq, device=dev))[:, :, None]   # (B or 1, Sq, 1)
     k_pos = torch.arange(Sk, device=dev)
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    mask = torch.ones((1, Sq, Sk), dtype=torch.bool, device=dev)
     if causal:
-        mask &= k_pos[None, :] <= q_pos[:, None]
+        mask = mask & (k_pos <= q_pos)
     if window:
-        mask &= k_pos[None, :] > (q_pos[:, None] - window)
-    bias = _mask_bias(mask)[None, None, None]
+        mask = mask & (k_pos > (q_pos - window))
+    bias = _mask_bias(mask)[:, None, None]            # (B or 1,1,1,Sq,Sk)
     if kv_len is not None:
         kv_len = torch.as_tensor(kv_len, device=dev)
         live = k_pos[None, :] < kv_len.reshape(-1, 1)        # (B or 1, Sk)
@@ -109,3 +115,51 @@ def attend(cfg: ModelConfig, q, k, v, *, causal: bool = True,
         return attention_flash(q, k, v, causal=causal)
     return attention_direct(q, k, v, causal=causal, q_offset=q_offset,
                             kv_len=kv_len, window=window)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode step
+# ---------------------------------------------------------------------------
+
+
+def decode_attend(cfg: ModelConfig, q, cache_k, cache_v, kv_len,
+                  window: int = 0):
+    """One-token decode: q (B,1,Hq,D) against cache (B,Smax,Hkv,D).
+
+    ``kv_len`` — (B,) int32 tensor on q's device: the number of valid
+    positions in the cache *including* the newly-written token (the
+    reference's ``index``; the decode step builds it once for all layers).
+    With ``attn_impl="flash"`` and no window this is kernel K4
+    (``ops.decode_attention`` over the live rows; ``kv_len`` >= 1 always
+    holds here, which is K4's contract); otherwise the reference's
+    ``attention_direct`` with ``kv_len``. A sliding window on the flash
+    path raises on the card, as ``attend`` does for K3, and keeps the
+    reference's math on the CPU. ``cfg.decode_seq_shard`` is a GSPMD layout
+    hint of the reference (sequence-sharded scores across a TPU mesh); on
+    one card it changes nothing and is ignored."""
+    if cfg.attn_impl == "flash" and not window:
+        o = ops.decode_attention(q[:, 0].contiguous(), cache_k, cache_v,
+                                 kv_len)
+        return o.reshape(q.shape)
+    if cfg.attn_impl == "flash" and q.device.type == "cuda":
+        raise ValueError("attn_impl='flash' does not implement "
+                         f"sliding_window={window} in decode; use "
+                         "attn_impl='xla'")
+    return attention_direct(q, cache_k, cache_v, causal=False,
+                            kv_len=kv_len, window=window,
+                            q_offset=(kv_len - 1) if window else 0)
+
+
+def cache_update(cache_k, cache_v, k_new, v_new, index: int,
+                 masked: bool = False):
+    """Write (B,1,Hkv,D) new KV at position ``index`` of (B,Smax,Hkv,D).
+
+    Unlike the reference (pure functions), the write is in place: the
+    caches are updated and returned, so a decode step never copies the
+    cache. ``masked`` (``cfg.decode_masked_write``) selects the reference's
+    shard-local where() write for a sequence-sharded cache, a GSPMD layout
+    choice like ``decode_seq_shard``: on one card it gives the same tensors
+    as the slice write, so it is accepted and ignored."""
+    cache_k[:, index:index + 1] = k_new.to(cache_k.dtype)
+    cache_v[:, index:index + 1] = v_new.to(cache_v.dtype)
+    return cache_k, cache_v

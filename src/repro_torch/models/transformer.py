@@ -1,10 +1,16 @@
-"""Decoder-only transformer LM (the dense family: GPT-2 Large here).
+"""Decoder-only transformer LM (the dense family: GPT-2 Large, TinyLlama).
 
-Port of ``repro.models.transformer`` for the serving path: ``block_forward``
-and ``forward_hidden`` over a parameter dict whose ``"layers"`` entry is a
-list of per-layer dicts (the reference stacks them along a leading layer
-axis for ``jax.lax.scan``; PyTorch runs eagerly, so the layers are a plain
-loop). Two ways to get parameters:
+Port of ``repro.models.transformer`` for the serving paths: ``block_forward``
+and ``forward_hidden`` (the pipeline server's stage compute), and the
+KV-cache engine's ``make_cache``, ``prefill``, ``block_decode`` and
+``decode_step``, over a parameter dict whose ``"layers"`` entry is a list
+of per-layer dicts (the reference stacks them along a leading layer axis
+for ``jax.lax.scan``; PyTorch runs eagerly, so the layers are a plain
+loop). The cache keeps the reference's layout: ``k`` and ``v`` of shape
+(L, B, capacity, Hkv, D), layer-major so that each layer's slice is a
+contiguous (B, capacity, Hkv, D) tensor for kernel K4, and ``index``, the
+number of filled positions, kept on the host as an int. Two ways to get
+parameters:
 
 * ``params_from_jax(tree)`` — the reference's parameter pytree, converted
   to numpy by the caller, becomes torch tensors with the layer stack
@@ -15,26 +21,34 @@ loop). Two ways to get parameters:
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (Params, apply_norm, dense_init,
-                                       embed_tokens, init_norm, pdtype)
+from repro_torch.models.common import (Params, adtype, apply_norm,
+                                       dense_init, embed_tokens, init_norm,
+                                       logits_head, pdtype)
 from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.models.rope import apply_rotary, positional_angles
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise for model families this slice of the port does not serve."""
-    if cfg.family != "dense" or cfg.pos_type not in ("learned", "none"):
+def require_dense(cfg: ModelConfig, rope: bool = False) -> None:
+    """Raise for model families the port does not serve yet.
+
+    Dense models with learned positions (GPT-2) are served everywhere;
+    ``rope=True`` also admits RoPE (TinyLlama), which only the KV-cache
+    engine path (``prefill`` / ``decode_step``) serves so far."""
+    pos_ok = ("learned", "none") + (("rope",) if rope else ())
+    if cfg.family != "dense" or cfg.pos_type not in pos_ok:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / pos_type "
             f"{cfg.pos_type!r} join the port with their model slices "
-            "(RoPE, MoE, SSM, audio); this slice serves dense models with "
-            "learned positions (GPT-2)")
+            "(MoE, vlm, SSM, audio); the pipeline server serves dense "
+            "models with learned positions (GPT-2), the KV-cache engine "
+            "also RoPE (TinyLlama)")
 
 
 # ---------------------------------------------------------------------------
@@ -56,7 +70,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Params:
     """Random weights from ``generator`` on ``device``: the reference's
     ``init`` distributions, not its draws."""
-    require_dense(cfg)
+    require_dense(cfg, rope=True)
     emb: Params = {"tok": dense_init((cfg.vocab_size, cfg.d_model),
                                      generator, device, pdtype(cfg))}
     if cfg.pos_type == "learned":
@@ -108,20 +122,126 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Params:
 # ---------------------------------------------------------------------------
 
 
-def block_forward(cfg: ModelConfig, p: Params, x):
+def block_forward(cfg: ModelConfig, p: Params, x, angles=None):
     """Full-sequence (prefill) block. Returns (x, (k, v))."""
     h = apply_norm(cfg, p["norm1"], x)
     q, k, v = attn.qkv_proj(cfg, p["attn"], h)
+    if angles is not None:
+        q = apply_rotary(q, angles)
+        k = apply_rotary(k, angles)
     o = attn.attend(cfg, q, k, v, causal=True, window=cfg.sliding_window)
     x = x + attn.out_proj(cfg, p["attn"], o)
     h = apply_norm(cfg, p["norm2"], x)
     return x + apply_mlp(cfg, p["ffn"], h), (k, v)
 
 
-def forward_hidden(cfg: ModelConfig, params: Params, tokens):
-    """tokens (B,S) -> final-normed hidden (B,S,d) through every layer."""
-    require_dense(cfg)
-    x = embed_tokens(cfg, params["embed"], tokens)
+def block_decode(cfg: ModelConfig, p: Params, x, angles, cache_k, cache_v,
+                 index: int, kv_len: torch.Tensor):
+    """One-token block. x (B,1,d); caches (B,Smax,Hkv,D), written in place
+    at the host int ``index``. ``kv_len`` — (B,) int32 tensor on the
+    device equal to ``index + 1``, built once per step for every layer.
+    Returns (x, cache_k, cache_v)."""
+    h = apply_norm(cfg, p["norm1"], x)
+    q, k, v = attn.qkv_proj(cfg, p["attn"], h)
+    if angles is not None:
+        q = apply_rotary(q, angles)
+        k = apply_rotary(k, angles)
+    cache_k, cache_v = attn.cache_update(cache_k, cache_v, k, v, index,
+                                         masked=cfg.decode_masked_write)
+    o = attn.decode_attend(cfg, q, cache_k, cache_v, kv_len,
+                           window=cfg.sliding_window)
+    x = x + attn.out_proj(cfg, p["attn"], o)
+    h = apply_norm(cfg, p["norm2"], x)
+    return x + apply_mlp(cfg, p["ffn"], h), cache_k, cache_v
+
+
+def _angles(cfg: ModelConfig, positions):
+    if cfg.pos_type in ("rope", "mrope"):
+        return positional_angles(cfg, positions)
+    return None
+
+
+def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
+                   collect_kv: bool = False):
+    """tokens (B,S) -> final-normed hidden (B,S,d) through every layer.
+
+    ``positions`` (B, S) feed learned positions and RoPE (default
+    0..S-1). With ``collect_kv`` returns (hidden, (k, v)) with k, v stacked
+    per layer: (L, B, S, Hkv, D)."""
+    require_dense(cfg, rope=True)
+    x = embed_tokens(cfg, params["embed"], tokens,
+                     positions if cfg.pos_type == "learned" else None)
+    B, S = tokens.shape
+    if positions is None and cfg.pos_type == "rope":
+        positions = torch.arange(S, device=tokens.device)[None, :].expand(
+            B, S)
+    angles = _angles(cfg, positions)
+    ks, vs = [], []
     for lp in params["layers"]:
-        x, _ = block_forward(cfg, lp, x)
-    return apply_norm(cfg, params["final_norm"], x)
+        x, (k, v) = block_forward(cfg, lp, x, angles)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    x = apply_norm(cfg, params["final_norm"], x)
+    if collect_kv:
+        return x, (torch.stack(ks), torch.stack(vs))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def make_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
+               device="cpu"):
+    """An empty cache: zero K/V of (L, batch, capacity, Hkv, D) in the
+    activation dtype (or ``dtype``), index 0."""
+    dtype = dtype or adtype(cfg)
+    shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "index": 0}
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens, positions=None,
+            capacity: Optional[int] = None):
+    """Process the prompt (B, S); returns (last-token logits (B,1,V),
+    cache) with K/V zero-padded to ``capacity`` (default S)."""
+    x, (k, v) = forward_hidden(cfg, params, tokens, positions=positions,
+                               collect_kv=True)
+    L, B, S = k.shape[:3]
+    capacity = max(capacity or S, S)
+    cache = make_cache(cfg, B, capacity, dtype=k.dtype, device=k.device)
+    cache["k"][:, :, :S] = k
+    cache["v"][:, :, :S] = v
+    cache["index"] = S
+    logits = logits_head(cfg, params["embed"], x[:, -1:, :])
+    return logits, cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, token, cache,
+                positions=None):
+    """token (B,1) int; cache from prefill/make_cache. One serve step:
+    returns (logits (B,1,V), cache) with the new K/V written in place and
+    the index advanced. The index is a host int, so no step reads a device
+    scalar back."""
+    require_dense(cfg, rope=True)
+    index = int(cache["index"])
+    B = token.shape[0]
+    dev = token.device
+    x = embed_tokens(cfg, params["embed"], token,
+                     positions=torch.full((B, 1), index, device=dev)
+                     if cfg.pos_type == "learned" else None)
+    if cfg.pos_type == "rope" and positions is None:
+        positions = torch.full((B, 1), index, dtype=torch.int32, device=dev)
+    angles = _angles(cfg, positions)
+    kv_len = torch.full((B,), index + 1, dtype=torch.int32, device=dev)
+    for l, lp in enumerate(params["layers"]):
+        x, _, _ = block_decode(cfg, lp, x, angles, cache["k"][l],
+                               cache["v"][l], index, kv_len)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = logits_head(cfg, params["embed"], x)
+    cache["index"] = index + 1
+    return logits, cache

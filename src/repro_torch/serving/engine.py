@@ -1,10 +1,13 @@
-"""Serving admission: the request record and the window admission queue
-the trust-routed pipeline server (gtrac_serve.py) batches its windows
-from.
+"""Batched serving engine: prefill + decode with greedy/temperature
+sampling, EOS detection, and a window admission queue (static batching;
+the trust-routed pipeline server in gtrac_serve.py layers G-TRAC on top
+and shares ``AdmissionQueue`` for its window-batched routing loop).
 
-Port of ``repro.serving.engine`` — ``Request``, ``_deprecated_submit`` and
-``AdmissionQueue``, copied verbatim. The reference's KV-cache
-``ServingEngine`` joins the port with its decode-attention kernel.
+Port of ``repro.serving.engine``: ``Request``, ``_deprecated_submit`` and
+``AdmissionQueue`` copied verbatim, and ``ServingEngine``, the KV-cache
+engine, whose every decode step runs kernel K4 (``decode_attention``) in
+each layer when ``cfg.attn_impl == "flash"`` and the prompt through kernel
+K3 (``flash_attention``) at prefill.
 
 Submission goes through the unified ``SubmitSpec`` surface
 (serving/api.py); the legacy ``submit(prompt, ...)`` keyword form is a
@@ -18,7 +21,12 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.api import build_model
+from repro_torch.models.common import strict_fp32_matmul
 from repro_torch.serving.api import SubmitSpec
 
 
@@ -164,3 +172,125 @@ class AdmissionQueue:
                 else:
                     decode.append(r)
         return prefill, decode
+
+
+def next_tokens(logits, greedy: bool = True, temperature: float = 1.0,
+                generator=None):
+    """(B, V) logits -> (B,) next tokens: the first maximum (``greedy``, as
+    ``jnp.argmax``), or one draw per row from softmax(logits / temperature)
+    with ``generator``."""
+    if greedy:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+class ServingEngine:
+    """The KV-cache engine: requests admitted in queue windows, grouped by
+    prompt length, each group prefilled once into a cache of capacity
+    ``S + max_new + capacity_margin`` and decoded one token per step.
+
+    ``device`` is where the model runs: ``cuda`` unless the caller passes
+    another (``"cpu"`` in the tests); with no CUDA and no device given this
+    raises rather than quietly running on the CPU. ``params`` must already
+    live there. Greedy decoding takes the first maximum of the logits, as
+    ``jnp.argmax``; sampling draws from a ``torch.Generator`` seeded from
+    ``seed`` (the reference's ``jax.random.categorical`` stream cannot be
+    reproduced, so sampled tokens differ from the reference's; their
+    distribution does not). ``prefills`` and ``decode_steps`` count the
+    model calls."""
+
+    def __init__(self, cfg: ModelConfig, params, capacity_margin: int = 64,
+                 max_batch: int = 64, device=None):
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        self.params = params
+        self.margin = capacity_margin
+        self.device = resolve_device(device)
+        emb = params["embed"]["tok"]
+        if emb.device != self.device:
+            raise ValueError(f"params live on {emb.device}, the engine runs "
+                             f"on {self.device}: build them there "
+                             "(init_params / params_from_jax take a device)")
+        if self.device.type == "cuda":
+            strict_fp32_matmul()   # f32 runs stay full f32 (no TF32)
+        self.admission = AdmissionQueue(max_batch=max_batch)
+        self.prefills = 0
+        self.decode_steps = 0
+
+    @property
+    def queue(self) -> List[Request]:
+        return self.admission.pending
+
+    def _prefill(self, params, toks, cap: int):
+        self.prefills += 1
+        return self.model.prefill(params, tokens=toks, capacity=cap)
+
+    def _decode(self, params, token, cache):
+        self.decode_steps += 1
+        return self.model.decode_step(params, token, cache)
+
+    def submit(self, spec, max_new_tokens: Optional[int] = None,
+               eos_id: Optional[int] = None) -> Request:
+        """Queue one stream. ``spec`` is a ``SubmitSpec`` (the canonical
+        surface); passing a raw prompt array with keywords is the
+        deprecated form and forwards through a shim."""
+        if not isinstance(spec, SubmitSpec):
+            _deprecated_submit("ServingEngine")
+            spec = SubmitSpec(prompt=spec,
+                              max_new_tokens=(16 if max_new_tokens is None
+                                              else max_new_tokens),
+                              eos_id=eos_id)
+        rid = (self.admission.next_request_id()
+               if spec.request_id is None else spec.request_id)
+        return self.admission.submit(Request.from_spec(spec, rid))
+
+    def run_batch(self, reqs: Optional[List[Request]] = None,
+                  greedy: bool = True, temperature: float = 1.0,
+                  seed: int = 0) -> List[Request]:
+        """Serve requests to completion, admitted in queue windows and
+        grouped by prompt length (``AdmissionQueue.by_prompt_length``)."""
+        if reqs is None:
+            served: List[Request] = []
+            while len(self.admission):
+                served += self.run_batch(self.admission.next_window(),
+                                         greedy, temperature, seed)
+            return served
+        if not reqs:
+            return []
+        for group in AdmissionQueue.by_prompt_length(reqs).values():
+            self._run_equal_batch(group, greedy, temperature, seed)
+        return reqs
+
+    @torch.inference_mode()
+    def _run_equal_batch(self, reqs: List[Request], greedy: bool,
+                         temperature: float, seed: int) -> List[Request]:
+        toks = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                               dtype=torch.int64, device=self.device)
+        max_new = max(r.max_new_tokens for r in reqs)
+        cap = toks.shape[1] + max_new + self.margin
+        logits, cache = self._prefill(self.params, toks, cap)
+        gen = None if greedy else \
+            torch.Generator(device=self.device).manual_seed(seed)
+        cur = None
+        for t in range(max_new):
+            if cur is None:
+                step_logits = logits
+            else:
+                step_logits, cache = self._decode(self.params, cur, cache)
+            nxt = next_tokens(step_logits[:, -1, :], greedy, temperature, gen)
+            cur = nxt[:, None]
+            nxt_host = nxt.tolist()
+            for i, r in enumerate(reqs):
+                if r.done or t >= r.max_new_tokens:
+                    continue
+                tok = int(nxt_host[i])
+                r.output.append(tok)
+                if r.eos_id is not None and tok == r.eos_id:
+                    r.done = True
+            if all(r.done or len(r.output) >= r.max_new_tokens
+                   for r in reqs):
+                break
+        for r in reqs:
+            r.done = True
+        return reqs

@@ -1,10 +1,12 @@
-"""KV locality for the serving layer: ``KVLocalityTracker``, the
-per-stream record of which peer chain holds warm KV state, which is what
-turns chain *reuse* into a routing input.
+"""KV-cache utilities for the serving layer.
 
-Port of ``repro.serving.kv_cache`` (``KVLocalityTracker`` only, copied
-verbatim). The reference's ``cache_bytes`` and ``grow_cache`` join the
-port with its KV-cache engine.
+Port of ``repro.serving.kv_cache``. The per-family cache layouts live with
+the models (``models/api.make_cache``); this module adds engine-side
+management — capacity planning (``cache_bytes``, from shapes and dtypes,
+nothing allocated), growth (``grow_cache``) — plus the serving-layer prize:
+``KVLocalityTracker`` (copied verbatim), the per-stream record of which
+peer chain holds warm KV state, which is what turns chain *reuse* into a
+routing input.
 
 Locality model
 --------------
@@ -30,7 +32,39 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.api import _require_served, make_cache  # noqa: F401
+from repro_torch.models.common import adtype
+
+
+def cache_bytes(cfg: ModelConfig, batch: int, capacity: int) -> int:
+    """Bytes of ``make_cache(cfg, batch, capacity)``, computed from its
+    shapes and dtypes (nothing is allocated): K and V of
+    (L, batch, capacity, Hkv, D) in the activation dtype, plus the index,
+    counted as the reference counts its int32 scalar."""
+    _require_served(cfg)
+    kv = (cfg.num_layers * batch * capacity * cfg.num_kv_heads
+          * cfg.head_dim * adtype(cfg).itemsize)
+    return 2 * kv + np.dtype(np.int32).itemsize
+
+
+def grow_cache(cache, new_capacity: int):
+    """Grow the sequence axis of the 5-D KV tensors to ``new_capacity``
+    (zero-padded; a new dict, the input is untouched). Shrinking is a
+    no-op, never a truncation; other entries pass through."""
+    out = {}
+    for name, leaf in cache.items():
+        if name in ("k", "v", "sk", "sv") and isinstance(leaf, torch.Tensor) \
+                and leaf.dim() == 5 and new_capacity > leaf.shape[2]:
+            shape = list(leaf.shape)
+            shape[2] = new_capacity
+            grown = leaf.new_zeros(shape)
+            grown[:, :, :leaf.shape[2]] = leaf
+            leaf = grown
+        out[name] = leaf
+    return out
 
 
 class KVLocalityTracker:

@@ -99,3 +99,26 @@ def test_routing_entry_points_without_device_or_cuda_raise(monkeypatch):
     assert router.route_window(table)[1].feasible
     plan_batched(table, 36, cfg, taus, planner=RoutePlanner(36),
                  backend="numpy")
+
+
+def test_engine_without_device_or_cuda_raises(monkeypatch):
+    """The KV-cache engine defaults to the card: with no device and no
+    CUDA it raises instead of running on the CPU; asked explicitly, the
+    CPU is fine."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("tinyllama-1.1b").reduced(vocab_size=64)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params)
+    ServingEngine(cfg, params, device="cpu")
+
+
+def test_serve_engine_mode_without_device_or_cuda_raises(monkeypatch):
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--mode", "engine", "--reduced", "--tokens", "2",
+                    "--requests", "1"])
