@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
 Phases, each of which fails the run (non-zero exit) when it fails (they
-run in the order 1, 10, 2, 11-13, 3-9: the newest paths first, so that a
-fault there shows before the long routing phases):
+run in the order 1, 14, 10, 2, 11-13, 3-9: the newest paths first, so that
+a fault there shows before the long routing phases):
 
 1. build  — compiles the hand-written kernels from ``src/repro_torch/csrc``
    with nvcc for sm_90a, in parallel (one nvcc per source).
@@ -63,20 +63,32 @@ fault there shows before the long routing phases):
    bound and ``scaled_dot_product_attention`` with a live mask (a
    yardstick the port never calls).
 11. KV-cache engine — ``ServingEngine.run_batch`` at full width, bf16,
-   ``attn_impl="flash"``: gpt2-large with 4 prompts of 8 tokens and 4 of
-   1024, tinyllama-1.1b with 4 prompts of 2048, 32 new tokens each, after
-   a warm-up run of the same requests. Fails
-   unless every stream gets its tokens, K4 launched once per layer of every
-   decode step and K3 once per layer of every prefill, and the cache's
-   bytes equal ``cache_bytes``. Reports tokens/s, prefill ms, decode ms
-   per step and peak device memory.
-12. engine f32 parity — the same engine in float32 through the kernels (K3
-   + K4) and through the plain path (``attn_impl="xla"``) on the card, for
-   a gpt2-large.reduced-sized model and full-width TinyLlama, 8 new tokens:
-   the greedy tokens must be identical.
-13. engine profile — ``torch.profiler`` over decode steps of each model:
-   the device's busy share and K4's device time against the weight casts
-   and the matmuls.
+   ``attn_impl="flash"``: rwkv6-1.6b (24 layers, random weights from the
+   seed) with 4 prompts of 8 tokens and 4 of 2048, gpt2-large with 4 of 8
+   and 4 of 1024, tinyllama-1.1b with 4 of 2048, 32 new tokens each, after
+   a warm-up run of the same requests. Fails unless every stream gets its
+   tokens, the cache's bytes equal ``cache_bytes``, and for the dense
+   models K4 launched once per layer of every decode step and K3 once per
+   layer of every prefill (K5 never), for RWKV6 K5 once per layer of every
+   prefill (48) and K3 and K4 never. Reports tokens/s, prefill ms, decode
+   ms per step and peak device memory.
+12. engine f32 parity — the same engine in float32 through the kernels
+   and through the plain path (``attn_impl="xla"``) on the card, for a
+   gpt2-large.reduced-sized model, full-width TinyLlama, an
+   rwkv6-1.6b.reduced-sized model and full-width RWKV6 (prompts of 64 and
+   100 tokens: across chunks, with a ragged tail), 8 new tokens: the
+   greedy tokens must be identical (else the top-2 logit margin at the
+   first differing step is printed and the run fails).
+13. engine profile — ``torch.profiler`` over decode steps of each model
+   (and over one 4 x 2048 RWKV6 prefill): the device's busy share and
+   K4's (K5's) device time against the weight casts and the matmuls.
+14. K5 — ``wkv6_chunked`` against its plain version on the card: the
+   engine's prefill shape (B = 4, S = 2048, H = 32, K = 64) on model-like
+   inputs within 1e-4 x max|plain|, and within 5e-4 absolute on the
+   reference test's distribution: B = 4 S = 8, a ragged S = 1000, a
+   nonzero state0, lw = -20 and the three shapes of
+   ``tests/test_kernels.py``; y and the final state, each shape timed
+   beside its plain version and its bound, per call and on the device.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and the result line
@@ -113,7 +125,8 @@ GEN_TOKENS = 4
 #: the K2 timing row the kernels line reports: (topology, R)
 K2_ROW = ("scaling1000", 64)
 #: the KV-cache engine's runs: (arch, [(prompt length, requests), ...])
-ENGINE_RUNS = (("gpt2-large", ((8, 4), (1024, 4))),
+ENGINE_RUNS = (("rwkv6-1.6b", ((8, 4), (2048, 4))),
+               ("gpt2-large", ((8, 4), (1024, 4))),
                ("tinyllama-1.1b", ((2048, 4),)))
 ENGINE_TOKENS = 32
 PARITY_TOKENS = 8
@@ -192,7 +205,7 @@ def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all(["tropical_route.cu", "flash_attention.cu",
-                            "decode_attention.cu"])
+                            "decode_attention.cu", "rwkv6_chunk.cu"])
     secs = time.perf_counter() - t0
     for src, text in logs.items():
         for line in text.splitlines():
@@ -839,7 +852,7 @@ def phase_generate_algorithms(cfg, params):
 
 
 # ---------------------------------------------------------------------------
-# Phases 10-13: kernel K4 and the KV-cache engine
+# Phases 10-14: kernels K4 and K5 and the KV-cache engine
 # ---------------------------------------------------------------------------
 
 
@@ -924,6 +937,102 @@ def phase_k4():
     return rows
 
 
+def k5_bound_ms(B, S, H, K) -> tuple:
+    """Least time for the WKV scan on this card: r, k, v, lw read once and
+    y written once (f32), u and state0 read and the final state written
+    once, against the recurrence's 4 K^2 FLOP per token and head (the
+    state product and the state update, 2 K^2 multiply-adds) at the FP32
+    peak."""
+    nbytes = 4 * (5 * B * S * H * K + H * K + 2 * B * H * K * K)
+    flops = 4 * K * K * B * S * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
+def k5_inputs(B, S, H, K, dist, gen, state=False, lw=None):
+    """r, k, v, lw, u, state0 on the card. ``dist="ref"``: the reference
+    test's distribution (normal r, k, v; lw = -exp(N - 2) or the constant
+    ``lw``; u = 0.3 N). ``dist="model"``: what the engine's prefill gives
+    at init (r, k, v of unit scale, lw = -exp(-6 + 0.1 N) from the base
+    decay w0 = -6 and a small data-dependent part, u = 0.1)."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.float32)
+    r, k, v = randn(B, S, H, K), randn(B, S, H, K), randn(B, S, H, K)
+    if dist == "model":
+        lwv = -torch.exp(-6.0 + 0.1 * randn(B, S, H, K))
+        u = torch.full((H, K), 0.1, device=DEVICE)
+    else:
+        lwv = -torch.exp(randn(B, S, H, K) - 2.0) if lw is None else \
+            torch.full((B, S, H, K), float(lw), device=DEVICE)
+        u = 0.3 * randn(H, K)
+    s0 = randn(B, H, K, K) if state else \
+        torch.zeros((B, H, K, K), device=DEVICE)
+    return r, k, v, lwv, u, s0
+
+
+def phase_k5():
+    """K5 against its plain version: the engine's prefill shape on
+    model-like inputs (1e-4 x max|plain|), and the reference test's
+    distribution (5e-4 absolute) at a short, a ragged, a nonzero-state,
+    a strong-decay shape and the reference test's three shapes; y and the
+    final state. Every shape timed beside its plain version and bound."""
+    import torch
+    from repro_torch.kernels import rwkv6_chunk as wk
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    # (name, B, S, H, K, dist, nonzero state0, constant lw)
+    shapes = [("full-width", 4, 2048, 32, 64, "model", False, None),
+              ("short", 4, 8, 32, 64, "ref", False, None),
+              ("ragged", 4, 1000, 32, 64, "ref", False, None),
+              ("state0", 4, 256, 32, 64, "ref", True, None),
+              ("strong-decay", 2, 100, 4, 64, "ref", False, -20.0),
+              ("kernels-test-1", 2, 64, 2, 16, "ref", False, None),
+              ("kernels-test-2", 1, 128, 4, 32, "ref", False, None),
+              ("kernels-test-3", 2, 96, 3, 8, "ref", False, None)]
+    rows = {}
+    for name, B, S, H, K, dist, state, lw in shapes:
+        args = k5_inputs(B, S, H, K, dist, gen, state, lw)
+        y, st = wk.wkv6_chunked_cuda(*args)
+        py, pst = wk.wkv6_chunked_plain(*args)
+        sync()
+        finite = bool(torch.isfinite(y).all()) and \
+            bool(torch.isfinite(st).all())
+        err_y = float((y - py).abs().max())
+        err_s = float((st - pst).abs().max())
+        if dist == "model":
+            tol_y = 1e-4 * float(py.abs().max())
+            tol_s = 1e-4 * float(pst.abs().max())
+        else:
+            tol_y = tol_s = 5e-4
+        if not (finite and err_y <= tol_y and err_s <= tol_s):
+            raise AssertionError(
+                f"K5 {name} B={B} S={S} H={H} K={K}: finite={finite}, max "
+                f"abs err y {err_y} (tol {tol_y}), state {err_s} (tol "
+                f"{tol_s})")
+        row = {"shape": name, "B": B, "S": S, "H": H, "K": K,
+               "inputs": dist, "max_abs_err": max(err_y, err_s),
+               "max_abs_err_y": err_y, "max_abs_err_state": err_s,
+               "tol_y": tol_y, "tol_state": tol_s,
+               "max_abs_y_plain": float(py.abs().max())}
+        big = B * S * H * K > 1 << 22
+        row["ms"] = cuda_ms(lambda: wk.wkv6_chunked_cuda(*args),
+                            iters=20 if big else 100)
+        row["device_ms_per_launch"] = device_ms(
+            lambda: wk.wkv6_chunked_cuda(*args), "wkv6_chunk_kernel<",
+            iters=10 if big else 20)
+        row["plain_ms"] = cuda_ms(lambda: wk.wkv6_chunked_plain(*args),
+                                  iters=5 if big else 20, warmup=1)
+        row["bound_ms"], row["bound_by"] = k5_bound_ms(B, S, H, K)
+        row["ctas"] = B * H
+        rows[name] = row
+        log({"k5": row})
+    return rows
+
+
 def engine_requests(eng, vocab: int, groups, new_tokens: int):
     """Submit ``groups`` of (prompt length, count) requests, prompts drawn
     from the seed."""
@@ -933,6 +1042,14 @@ def engine_requests(eng, vocab: int, groups, new_tokens: int):
     return [eng.submit(SubmitSpec(prompt=rng.integers(1, vocab, size=n),
                                   max_new_tokens=new_tokens))
             for n, count in groups for _ in range(count)]
+
+
+def cache_nbytes(cache) -> int:
+    """Bytes of a serving cache as allocated: every tensor, plus the
+    index counted as the reference's int32 scalar."""
+    import torch
+    return sum(t.numel() * t.element_size() for t in cache.values()
+               if isinstance(t, torch.Tensor)) + 4
 
 
 def timed_engine(cfg, params):
@@ -949,10 +1066,8 @@ def timed_engine(cfg, params):
         logits, cache = prefill(p, toks, cap)
         sync()
         eng.prefill_s.append(time.perf_counter() - t0)
-        eng.cache_bytes_seen.append(
-            (tuple(toks.shape), cap,
-             sum(cache[n].numel() * cache[n].element_size()
-                 for n in ("k", "v")) + 4))
+        eng.cache_bytes_seen.append((tuple(toks.shape), cap,
+                                     cache_nbytes(cache)))
         return logits, cache
 
     def timed_decode(p, token, cache):
@@ -968,21 +1083,41 @@ def timed_engine(cfg, params):
 
 
 def engine_params(arch, gpt2_params):
-    """Full-width parameters: the main path's GPT-2 Large ones, or
-    TinyLlama's made from the seed."""
+    """Full-width parameters: the main path's GPT-2 Large ones, or the
+    arch's made from the seed with its family's ``init``."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.api import build_model
     cfg = dataclasses.replace(get_config(arch), attn_impl="flash",
                               remat=False)
     if arch == "gpt2-large":
         return cfg, gpt2_params
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    return cfg, init_params(cfg, gen, DEVICE)
+    return cfg, build_model(cfg).init(gen, DEVICE)
+
+
+def n_parameters(params) -> int:
+    import torch
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    items = params.values() if isinstance(params, dict) else params
+    return sum(n_parameters(p) for p in items)
+
+
+def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
+    """The engine's kernel launches: a dense model runs K3 once per layer
+    of every prefill and K4 once per layer of every decode step; RWKV6
+    runs K5 once per layer of every prefill and no attention kernel."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return {"wkv6_chunked": L * prefills, "flash_attention": 0,
+                "decode_attention": 0}
+    return {"flash_attention": L * prefills,
+            "decode_attention": L * decode_steps, "wkv6_chunked": 0}
 
 
 def phase_engine(gpt2_params):
-    """The KV-cache engine at full width, bf16, through K3 and K4."""
+    """The KV-cache engine at full width, bf16, through the kernels."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serving.kv_cache import cache_bytes
@@ -1014,26 +1149,30 @@ def phase_engine(gpt2_params):
         if len(done) != len(reqs):
             raise AssertionError(f"engine {arch}: {len(done)} of "
                                  f"{len(reqs)} requests served")
-        L = cfg.num_layers
-        if counts["decode_attention"] != L * eng.decode_steps or \
+        if eng.prefills != len(groups) or \
                 eng.decode_steps != len(groups) * (ENGINE_TOKENS - 1):
             raise AssertionError(
-                f"engine {arch}: K4 launched {counts['decode_attention']} "
-                f"times for {eng.decode_steps} decode steps x {L} layers")
-        if counts["flash_attention"] != L * eng.prefills or \
-                eng.prefills != len(groups):
-            raise AssertionError(
-                f"engine {arch}: K3 launched {counts['flash_attention']} "
-                f"times for {eng.prefills} prefills x {L} layers")
+                f"engine {arch}: {eng.prefills} prefills and "
+                f"{eng.decode_steps} decode steps for {len(groups)} groups "
+                f"of {ENGINE_TOKENS} tokens")
+        want = expected_launches(cfg, eng.prefills, eng.decode_steps)
+        for name, n in want.items():
+            if counts[name] != n:
+                raise AssertionError(
+                    f"engine {arch}: {name} launched {counts[name]} times, "
+                    f"expected {n} ({eng.prefills} prefills, "
+                    f"{eng.decode_steps} decode steps x "
+                    f"{cfg.num_layers} layers)")
         for shape, cap, nbytes in eng.cache_bytes_seen:
             if nbytes != cache_bytes(cfg, shape[0], cap):
                 raise AssertionError(f"engine {arch}: cache of {nbytes} "
                                      f"bytes, cache_bytes says "
                                      f"{cache_bytes(cfg, shape[0], cap)}")
         tokens = sum(len(r.output) for r in done)
-        row = {"arch": arch, "layers": L, "d_model": cfg.d_model,
+        row = {"arch": arch, "family": cfg.family,
+               "layers": cfg.num_layers, "d_model": cfg.d_model,
                "heads": [cfg.num_heads, cfg.num_kv_heads],
-               "vocab": cfg.vocab_size,
+               "vocab": cfg.vocab_size, "parameters": n_parameters(params),
                "activation_dtype": cfg.activation_dtype,
                "groups": [list(g) for g in groups],
                "new_tokens": ENGINE_TOKENS, "tokens": tokens, "wall_s": wall,
@@ -1048,41 +1187,76 @@ def phase_engine(gpt2_params):
                "max_memory_allocated": peak}
         out[arch] = row
         log({"engine": row})
+        del params
     return out
 
 
 def engine_tokens(cfg, params, groups, new_tokens):
     eng = timed_engine(cfg, params)
-    engine_requests(eng, cfg.vocab_size, groups, new_tokens)
+    reqs = engine_requests(eng, cfg.vocab_size, groups, new_tokens)
+    prompts = [r.prompt for r in reqs]
     sync()
     t0 = time.perf_counter()
     done = eng.run_batch()
     sync()
-    return [r.output for r in done], time.perf_counter() - t0
+    return [r.output for r in done], prompts, time.perf_counter() - t0
+
+
+def top2_margin(cfg, params, prompt, prefix) -> float:
+    """The gap between the two largest logits of the plain path at the
+    step that follows ``prompt`` + ``prefix`` (one stream)."""
+    import torch
+    from repro_torch.models.api import build_model
+    toks = torch.as_tensor([list(prompt) + list(prefix)], dtype=torch.int64,
+                           device=DEVICE)
+    with torch.inference_mode():
+        logits, _ = build_model(cfg).prefill(params, tokens=toks,
+                                             capacity=toks.shape[1] + 1)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
 
 
 def phase_engine_parity(gpt2_params):
-    """f32: the kernel path (K3 + K4) and the plain path (attn_impl="xla")
-    give the same greedy tokens, on a gpt2-large.reduced-sized model and on
-    full-width TinyLlama."""
+    """f32: the kernel path and the plain path (attn_impl="xla") give the
+    same greedy tokens, on gpt2-large.reduced- and rwkv6-1.6b.reduced-sized
+    models and on full-width TinyLlama and RWKV6."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.api import build_model
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     small = dataclasses.replace(get_config("gpt2-large").reduced(
         num_layers=4), attn_impl="flash")
+    small_rwkv = dataclasses.replace(get_config("rwkv6-1.6b").reduced(
+        num_layers=4), attn_impl="flash")
+    rwkv_groups = ((64, 2), (100, 2))
     cases = [("gpt2-large.reduced", small,
-              init_params(small, gen, DEVICE), ((8, 3), (200, 2))),
+              build_model(small).init(gen, DEVICE), ((8, 3), (200, 2))),
              ("tinyllama-1.1b", *engine_params("tinyllama-1.1b",
                                                 gpt2_params),
-              ((16, 2), (320, 2)))]
+              ((16, 2), (320, 2))),
+             ("rwkv6-1.6b.reduced", small_rwkv,
+              build_model(small_rwkv).init(gen, DEVICE), rwkv_groups),
+             ("rwkv6-1.6b", *engine_params("rwkv6-1.6b", gpt2_params),
+              rwkv_groups)]
     for name, cfg, params, groups in cases:
         cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
-        k_out, k_s = engine_tokens(cfg32, params, groups, PARITY_TOKENS)
-        p_out, p_s = engine_tokens(dataclasses.replace(cfg32,
-                                                       attn_impl="xla"),
-                                   params, groups, PARITY_TOKENS)
+        plain32 = dataclasses.replace(cfg32, attn_impl="xla")
+        k_out, prompts, k_s = engine_tokens(cfg32, params, groups,
+                                            PARITY_TOKENS)
+        p_out, _, p_s = engine_tokens(plain32, params, groups,
+                                      PARITY_TOKENS)
         if k_out != p_out or any(len(o) != PARITY_TOKENS for o in k_out):
+            for i, (ko, po) in enumerate(zip(k_out, p_out)):
+                if ko != po:
+                    t = next((t for t, (a, b) in enumerate(zip(ko, po))
+                              if a != b), min(len(ko), len(po)))
+                    log({"engine_f32_divergence": {
+                        "model": name, "request": i, "step": t,
+                        "kernel_token": ko[t] if t < len(ko) else None,
+                        "plain_token": po[t] if t < len(po) else None,
+                        "top2_logit_margin": top2_margin(
+                            plain32, params, prompts[i], po[:t])}})
+                    break
             raise AssertionError(f"engine f32 {name}: kernel path {k_out} "
                                  f"vs plain path {p_out}")
         log({"engine_f32_parity": {"model": name, "requests": len(k_out),
@@ -1090,14 +1264,54 @@ def phase_engine_parity(gpt2_params):
                                    "plain_path_s": p_s}})
 
 
-def phase_engine_profile(gpt2_params):
-    """Device time by kernel over decode steps of each engine model
-    (batch 4, cache filled by a prefill outside the profile): the device's
-    busy share of the wall time and K4's share against the weight casts
-    (``aten::copy_``) and the matmuls (``aten::mm``)."""
-    import torch
+def profile_window(fn):
+    """Run ``fn`` (ending synchronised) under ``torch.profiler``; returns
+    (wall s, {device kernel: (ms, calls)}, {host op: (device ms, calls)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    kernels, ops_ms = {}, {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t > 0:
+            side = kernels if e.device_type == DeviceType.CUDA else ops_ms
+            side[e.key] = (t / 1e3, e.count)
+    return wall, kernels, ops_ms
+
+
+def profile_summary(wall, kernels, ops_ms, kernel_name: str, tag: str):
+    """The device's busy share, the hand-written kernel's device time
+    (kernels whose name contains ``kernel_name``) against the weight casts
+    (``aten::copy_``) and the matmuls (``aten::mm``), and the top items."""
+    busy = sum(t for t, _ in kernels.values())
+    mine = [(t, n) for k, (t, n) in kernels.items() if kernel_name in k]
+    mine_ms = sum(t for t, _ in mine)
+    return {"wall_s": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall * 1e3),
+            f"{tag}_ms": mine_ms, f"{tag}_launches": sum(n for _, n in mine),
+            f"{tag}_share_of_busy": mine_ms / busy,
+            "copy_ms": ops_ms.get("aten::copy_", (0.0, 0))[0],
+            "mm_ms": ops_ms.get("aten::mm", (0.0, 0))[0],
+            "top_ops_ms_calls": [[k[:60], t, n] for k, (t, n) in sorted(
+                ops_ms.items(), key=lambda kv: -kv[1][0])[:8]],
+            "top_kernels_ms_calls": [[k[:60], t, n] for k, (t, n) in sorted(
+                kernels.items(), key=lambda kv: -kv[1][0])[:8]]}
+
+
+def phase_engine_profile(gpt2_params):
+    """Device time by kernel over decode steps of each engine model
+    (batch 4, state filled by a prefill outside the profile), and for
+    RWKV6 over one 4 x 2048 prefill too: the device's busy share and the
+    hand-written kernel's share (K4 in decode, K5 in RWKV6's prefill)
+    against the weight casts and the matmuls."""
+    import torch
     from repro_torch.models.api import build_model
     steps = 8
     for arch, groups in ENGINE_RUNS:
@@ -1107,47 +1321,41 @@ def phase_engine_profile(gpt2_params):
         toks = torch.randint(1, cfg.vocab_size, (4, S), device=DEVICE,
                              generator=torch.Generator(device=DEVICE)
                              .manual_seed(SEED))
+        state = {}
+
+        def prefill():
+            state["logits"], state["cache"] = model.prefill(
+                params, tokens=toks, capacity=S + steps + 1)
+
+        def decode():
+            for _ in range(steps):
+                cur = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
+                state["logits"], state["cache"] = model.decode_step(
+                    params, cur, state["cache"])
+
+        windows = []
         with torch.inference_mode():
-            logits, cache = model.prefill(params, tokens=toks,
-                                          capacity=S + steps + 1)
-            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            logits, cache = model.decode_step(params, cur, cache)  # warm
+            prefill()
+            cur = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
+            model.decode_step(params, cur, state["cache"])      # warm
             sync()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(steps):
-                    cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
-                    logits, cache = model.decode_step(params, cur, cache)
-                sync()
-                wall = time.perf_counter() - t0
-        kernels, ops_ms = {}, {}
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total", None)
-            if t is None:
-                t = getattr(e, "self_cuda_time_total", 0)
-            if t > 0:
-                side = kernels if e.device_type == DeviceType.CUDA else ops_ms
-                side[e.key] = (t / 1e3, e.count)
-        if not kernels:
-            log({"engine_profile": {"arch": arch, "profile": "not measured "
-                                    "(no device activity recorded)"}})
-            continue
-        busy = sum(t for t, _ in kernels.values())
-        k4 = [(t, n) for k, (t, n) in kernels.items() if "decode_kernel" in k]
-        k4_ms = sum(t for t, _ in k4)
-        log({"engine_profile": {
-            "arch": arch, "decode_steps": steps, "batch": 4,
-            "cache_rows": S, "wall_s": wall, "device_busy_ms": busy,
-            "device_busy_share": busy / (wall * 1e3),
-            "k4_ms": k4_ms, "k4_launches": sum(n for _, n in k4),
-            "k4_share_of_busy": k4_ms / busy,
-            "copy_ms": ops_ms.get("aten::copy_", (0.0, 0))[0],
-            "mm_ms": ops_ms.get("aten::mm", (0.0, 0))[0],
-            "top_ops_ms_calls": [[k[:60], t, n] for k, (t, n) in sorted(
-                ops_ms.items(), key=lambda kv: -kv[1][0])[:8]],
-            "top_kernels_ms_calls": [[k[:60], t, n] for k, (t, n) in sorted(
-                kernels.items(), key=lambda kv: -kv[1][0])[:8]]}})
+            if cfg.family == "ssm":
+                windows.append(("prefill", "k5", "wkv6_chunk_kernel",
+                                profile_window(prefill)))
+            windows.append(("decode", "k4", "decode_kernel",
+                            profile_window(decode)))
+        for window, tag, kname, (wall, kernels, ops_ms) in windows:
+            head = {"arch": arch, "window": window, "batch": 4,
+                    "prompt": S}
+            if window == "decode":
+                head["decode_steps"] = steps
+            if not kernels:
+                log({"engine_profile": {**head, "profile": "not measured "
+                                        "(no device activity recorded)"}})
+                continue
+            log({"engine_profile": {**head, **profile_summary(
+                wall, kernels, ops_ms, kname, tag)}})
+        del params, state
 
 
 def card_line() -> str:
@@ -1177,6 +1385,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     phase_build()
+    k5 = phase_k5()
     k4 = phase_k4()
     k1 = phase_k1()
     k2 = phase_k2()
@@ -1203,6 +1412,7 @@ def main() -> int:
     phase_ssr()
     phase_generate_algorithms(cfg, params)
     k4_row = k4[("bfloat16", "gpt2-large")]
+    k5_row = k5["full-width"]
 
     kern = [
         {"name": "tropical_route_kbest", "route": "cuda",
@@ -1239,13 +1449,22 @@ def main() -> int:
          "plain_ms": k4_row["plain_ms"], "bound_ms": k4_row["bound_ms"],
          "bound_by": k4_row["bound_by"],
          "library_ms": k4_row["library_ms"]},
+        {"name": "wkv6_chunked", "route": "cuda",
+         "source": "src/repro_torch/csrc/rwkv6_chunk.cu",
+         "replaces": "src/repro/kernels/rwkv6_chunk.py:81",
+         "launches": engine["rwkv6-1.6b"]["launches"]["wkv6_chunked"],
+         "max_abs_err": k5_row["max_abs_err"], "ms": k5_row["ms"],
+         "plain_ms": k5_row["plain_ms"], "bound_ms": k5_row["bound_ms"],
+         "bound_by": k5_row["bound_by"], "library_ms": None},
     ]
     log(f"end-to-end: {tps} tokens/s; total {time.perf_counter() - t_start}"
         " s; kernel rows: K1 at R=1, K2 at R=64 on the N=1000 scaling "
         "testbed (its launches: route_batched), K3 at bf16 S=200 (B=1, "
         "H=20, D=64), K4 at bf16 on GPT-2 Large's decode shape (B=4, "
-        "H=20, D=64, S=1120, kv_len 1/37/1056/1120; its launches: both "
-        "engine runs)")
+        "H=20, D=64, S=1120, kv_len 1/37/1056/1120; its launches: the "
+        "engine runs), K5 at the RWKV6 engine's prefill shape (B=4, "
+        "S=2048, H=32, K=64, model-like inputs; its launches: the RWKV6 "
+        "engine run)")
     log(card_line())
     log({"kernels": kern})
     log({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,9 @@
 """Config registry: ``get_config(name)`` / ``--arch <id>`` resolution.
 
 Port of ``repro.configs``. The port serves the paper's own model,
-gpt2-large, and tinyllama-1.1b (RoPE, RMSNorm, SwiGLU, GQA 32/4) through
-the KV-cache engine; the other architectures join with their model
-families.
+gpt2-large, and, through the KV-cache engine, tinyllama-1.1b (RoPE,
+RMSNorm, SwiGLU, GQA 32/4) and rwkv6-1.6b (attention-free, the WKV scan
+of kernel K5); the other architectures join with their model families.
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "gpt2-large": "gpt2_large",
     # llama2-arch dense LM: RoPE, RMSNorm, SwiGLU, GQA 32/4
     "tinyllama-1.1b": "tinyllama_1_1b",
+    # attention-free RWKV6 "Finch": data-dependent decay, WKV scan (K5)
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)

@@ -70,7 +70,9 @@ class ModelConfig:
     # --- numerics / implementation switches ---
     param_dtype: str = "float32"
     activation_dtype: str = "bfloat16"
-    attn_impl: str = "xla"      # xla (plain attention) | flash (CUDA kernel)
+    # xla: plain PyTorch | flash: the CUDA kernels (attention K3/K4; on an
+    # RWKV6 config the prefill's WKV scan, K5)
+    attn_impl: str = "xla"
     attn_chunk_threshold: int = 1024   # seq len above which chunked attention engages
     attn_chunk_size: int = 1024
     remat: bool = True

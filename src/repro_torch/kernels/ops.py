@@ -1,12 +1,12 @@
 """Kernel dispatch by device.
 
 Port of ``repro.kernels.ops`` for the kernels ported so far (K1
-``tropical_route_kbest``, K2 ``tropical_route``, K3 ``flash_attention``
-and K4 ``decode_attention``). The rule is the tensor's device, not a
-fallback: a CPU tensor goes to the kernel's plain PyTorch version (that is
-how the tests run without a GPU); a CUDA tensor launches the hand-written
-kernel, and a kernel that cannot take the input raises instead of quietly
-running the plain version. Each CUDA wrapper counts its launches in
+``tropical_route_kbest``, K2 ``tropical_route``, K3 ``flash_attention``,
+K4 ``decode_attention`` and K5 ``wkv6_chunked``). The rule is the tensor's
+device, not a fallback: a CPU tensor goes to the kernel's plain PyTorch
+version (that is how the tests run without a GPU); a CUDA tensor launches
+the hand-written kernel, and a kernel that cannot take the input raises
+instead of quietly running the plain version. Each CUDA wrapper counts its launches in
 ``<wrapper>.launches``.
 """
 from __future__ import annotations
@@ -17,6 +17,8 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
+from repro_torch.kernels.rwkv6_chunk import (wkv6_chunked_cuda,
+                                             wkv6_chunked_plain)
 from repro_torch.kernels.tropical_route import (tropical_route_cuda,
                                                 tropical_route_kbest_cuda,
                                                 tropical_route_kbest_plain,
@@ -28,6 +30,7 @@ CUDA_KERNELS = {
     "tropical_route": tropical_route_cuda,
     "flash_attention": flash_attention_cuda,
     "decode_attention": decode_attention_cuda,
+    "wkv6_chunked": wkv6_chunked_cuda,
 }
 
 
@@ -52,6 +55,16 @@ def decode_attention(q, cache_k, cache_v, kv_len):
     if _on_cpu(q):
         return decode_attention_plain(q, cache_k, cache_v, kv_len)
     return decode_attention_cuda(q, cache_k, cache_v, kv_len)
+
+
+def wkv6(r, k, v, lw, u, state0):
+    """r, k, v, lw (B,S,H,K) f32; u (H,K); state0 (B,H,K,K) -> (y, state).
+    The reference's ``ops.wkv6`` runs its token oracle off the TPU; the
+    port's plain version is the chunked form, which the tests hold against
+    both."""
+    if _on_cpu(r):
+        return wkv6_chunked_plain(r, k, v, lw, u, state0)
+    return wkv6_chunked_cuda(r, k, v, lw, u, state0)
 
 
 def tropical_route(starts, ends, costs, *, total_layers: int, csr=None):

@@ -4,10 +4,11 @@ Port of ``repro.kernels.ref`` for the kernels ported so far:
 ``attention_ref`` (naive full-softmax GQA attention),
 ``decode_attention_ref`` (one-token GQA attention over a live-length
 masked KV cache: K4's plain version under the oracle's name),
-``tropical_route_ref`` (the single-best layered DP) and
+``tropical_route_ref`` (the single-best layered DP),
 ``tropical_route_kbest_ref`` (the K-best layered DP with one stable sort
-per boundary). The tests hold them against the reference oracles, and the
-kernels and their plain versions against these.
+per boundary) and ``wkv6_ref`` (the RWKV6 recurrence token by token).
+The tests hold them against the reference oracles, and the kernels and
+their plain versions against these.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import math
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention_plain
+from repro_torch.kernels.rwkv6_chunk import wkv6_step
 
 INF = 3.0e38
 
@@ -103,3 +105,21 @@ def tropical_route_kbest_ref(starts, ends, costs, total_layers: int,
         pedge[:, b, :] = torch.where(ok, sel // K, -1).to(torch.int32)
         prank[:, b, :] = torch.where(ok, sel % K, -1).to(torch.int32)
     return distK, pedge, prank
+
+
+# ---------------------------------------------------------------------------
+# WKV6 oracle (token-by-token recurrence)
+# ---------------------------------------------------------------------------
+
+
+def wkv6_ref(r, k, v, lw, u, state0):
+    """Sequential RWKV6 recurrence. r,k,v,lw (B,S,H,K) f32; u (H,K);
+    state0 (B,H,K,V). Returns y (B,S,H,V), final state."""
+    state = state0
+    ys = []
+    for t in range(r.shape[1]):
+        y, state = wkv6_step(r[:, t], k[:, t], v[:, t], lw[:, t], u, state)
+        ys.append(y)
+    if not ys:
+        return torch.zeros_like(r), state
+    return torch.stack(ys, dim=1), state

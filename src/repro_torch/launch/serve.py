@@ -6,16 +6,21 @@ pipeline, on PyTorch.
     PYTHONPATH=src python -m repro_torch.launch.serve --algorithm sp
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
         --arch tinyllama-1.1b
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
+        --arch rwkv6-1.6b
 
 Port of ``repro.launch.serve``. ``--mode gtrac`` (the default): the
 window-batched router (``--windowed``, optionally ``--disaggregate``;
 G-TRAC only) or per-token ``generate`` under any ``--algorithm``.
-``--mode engine``: the plain KV-cache ``ServingEngine`` (prefill through
-kernel K3, every decode step through kernel K4 with
-``--attn-impl flash``), which also serves RoPE models (tinyllama-1.1b).
-Runs on ``cuda`` unless ``--device cpu``. Weights are random, made from
-``--seed`` with ``init_params`` (the reference's distributions), so the
-tokens are meaningless; the routing, trust, repair and model compute are
+``--mode engine``: the plain KV-cache ``ServingEngine`` (with
+``--attn-impl flash``, a dense model's prefill through kernel K3 and every
+decode step through kernel K4), which also serves RoPE models
+(tinyllama-1.1b) and RWKV6 (rwkv6-1.6b: every prefill's WKV scan through
+kernel K5, decode as plain recurrence). The pipeline server is dense-only,
+as the reference's stage functions are. Runs on ``cuda`` unless
+``--device cpu``. Weights are random, made from ``--seed`` with the
+family's ``init`` (the reference's distributions), so the tokens are
+meaningless; the routing, trust, repair and model compute are
 the real thing. Sharded / process-backed anchors, gossip and relay planes,
 hedging and trace export join the port in later slices.
 """
@@ -32,7 +37,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.configs.base import GTRACConfig
 from repro_torch.kernels import ops
-from repro_torch.models.transformer import init_params
+from repro_torch.models.api import build_model
 from repro_torch.serving.api import SubmitSpec
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.gtrac_serve import GTRACPipelineServer, latency_summary
@@ -50,8 +55,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without it)")
     ap.add_argument("--attn-impl", default="flash", choices=["xla", "flash"],
-                    help="flash: the CUDA flash-attention kernel; xla: "
-                         "plain PyTorch attention")
+                    help="flash: the CUDA kernels (attention; RWKV6's "
+                         "WKV scan); xla: plain PyTorch")
     ap.add_argument("--algorithm", default="gtrac",
                     choices=["gtrac", "sp", "mr", "naive", "larac"])
     ap.add_argument("--tokens", type=int, default=16)
@@ -92,13 +97,18 @@ def main(argv=None):
         ap.error("--disaggregate splits the window-batched serving loop "
                  "(run_queue); add --windowed")
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if args.mode == "gtrac" and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the trust-routed pipeline server serves dense "
+            f"models only (family {cfg.family!r}); serve it with "
+            "--mode engine")
     if args.reduced:
         cfg = cfg.reduced(num_layers=4)
     cfg = dataclasses.replace(cfg, remat=False, attn_impl=args.attn_impl)
+    device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(cfg, gen, device)
+    params = build_model(cfg).init(gen, device)
     rng = np.random.default_rng(args.seed)
 
     if args.mode == "engine":

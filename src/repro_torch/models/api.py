@@ -9,35 +9,41 @@ port serves so far:
     model.make_cache(batch, capacity, device) -> empty cache
 
 The dense family (``dense``: GPT-2 Large, TinyLlama) is served by
-``models/transformer.py``. The other families raise
-``NotImplementedError`` naming the slice they wait for: ``moe`` and
-``vlm`` (their model slices), ``ssm`` (RWKV6, with kernel K5), ``hybrid``
-(Mamba2/Zamba2, with kernel K6) and ``audio`` (Whisper). The training
-hooks (``loss_fn``, the dry-run input specs) wait for the trainer slice.
+``models/transformer.py``, the ``ssm`` family (RWKV6) by
+``models/rwkv6.py``. The other families raise ``NotImplementedError``
+naming the slice they wait for: ``moe`` and ``vlm`` (their model slices),
+``hybrid`` (Mamba2/Zamba2, with kernel K6) and ``audio`` (Whisper). The
+training hooks (``loss_fn``, the dry-run input specs) wait for the trainer
+slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 
 #: family -> the slice of the port that brings it
 _WAITING = {
     "moe": "the MoE slice (models/moe.py: phi3.5-moe, qwen3-moe)",
     "vlm": "the vlm slice (M-RoPE, qwen2-vl)",
-    "ssm": "the RWKV6 slice (models/rwkv6.py with kernel K5, wkv6_chunked)",
     "hybrid": "the Mamba2/Zamba2 slice (kernel K6, ssd_chunked)",
     "audio": "the Whisper slice (models/whisper.py)",
 }
 
+_FAMILY_MODULES = {"dense": transformer, "ssm": rwkv6}
 
-def _require_served(cfg: ModelConfig) -> None:
+
+def _module(cfg: ModelConfig):
+    """The module serving ``cfg``'s family; raises for the others."""
     if cfg.family in _WAITING:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} joins "
                                   f"the port with {_WAITING[cfg.family]}")
-    transformer.require_dense(cfg, rope=True)
+    if cfg.family == "dense":
+        transformer.require_dense(cfg, rope=True)
+    return _FAMILY_MODULES[cfg.family]
 
 
 @dataclass
@@ -49,22 +55,30 @@ class Model:
     make_cache: Callable
 
 
-def make_cache(cfg: ModelConfig, batch: int, capacity: int, device="cpu"):
-    """An empty serving cache for ``cfg`` (the dense layout: k, v of
-    (L, batch, capacity, Hkv, D) in the activation dtype, index 0)."""
-    _require_served(cfg)
+def make_cache(cfg: ModelConfig, batch: int, capacity: int, device=None):
+    """An empty serving cache for ``cfg`` on ``device`` (``cuda`` unless
+    the caller passes another). Dense: k, v of (L, batch, capacity, Hkv, D)
+    in the activation dtype and index 0. RWKV6: its zero recurrent state
+    (``rwkv6.make_state``, independent of ``capacity``) and index 0, as the
+    reference."""
+    mod = _module(cfg)
+    device = resolve_device(device)
+    if mod is rwkv6:
+        state = rwkv6.make_state(cfg, batch, device)
+        state["index"] = 0
+        return state
     return transformer.make_cache(cfg, batch, capacity, device=device)
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    _require_served(cfg)
+    mod = _module(cfg)
     return Model(
         cfg=cfg,
-        init=lambda generator, device: transformer.init_params(
-            cfg, generator, device),
-        prefill=lambda params, **kw: transformer.prefill(cfg, params, **kw),
-        decode_step=lambda params, token, cache: transformer.decode_step(
+        init=lambda generator, device: mod.init_params(cfg, generator,
+                                                       device),
+        prefill=lambda params, **kw: mod.prefill(cfg, params, **kw),
+        decode_step=lambda params, token, cache: mod.decode_step(
             cfg, params, token, cache),
-        make_cache=lambda batch, capacity, device="cpu": make_cache(
+        make_cache=lambda batch, capacity, device=None: make_cache(
             cfg, batch, capacity, device=device),
     )

@@ -1,6 +1,7 @@
 """Shared model building blocks: dtypes, norms, embeddings, logits head.
 
-Port of ``repro.models.common`` for the dense decoder of this slice.
+Port of ``repro.models.common`` for the families the port serves (the
+dense decoder and RWKV6).
 Parameters are nested dicts of torch tensors in the reference's layouts:
 dense weights are ``(in, out)`` and are cast to the activation dtype at each
 matmul, exactly as the reference does, so parameters converted from the
@@ -89,6 +90,21 @@ def dense_init(shape, generator: torch.Generator, device,
 # ---------------------------------------------------------------------------
 # Embeddings / logits
 # ---------------------------------------------------------------------------
+
+
+def init_embeddings(cfg: ModelConfig, generator: torch.Generator,
+                    device) -> Params:
+    """Token embedding, learned positions (when the config has them) and
+    an untied head, each ``dense_init`` × 0.02, as the reference."""
+    p: Params = {"tok": dense_init((cfg.vocab_size, cfg.d_model), generator,
+                                   device, pdtype(cfg))}
+    if cfg.pos_type == "learned":
+        p["pos"] = dense_init((cfg.max_position, cfg.d_model), generator,
+                              device, pdtype(cfg))
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init((cfg.vocab_size, cfg.d_model), generator,
+                               device, pdtype(cfg))
+    return p
 
 
 def embed_tokens(cfg: ModelConfig, p: Params, tokens, positions=None):

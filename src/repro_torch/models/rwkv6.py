@@ -1,0 +1,253 @@
+"""RWKV6 "Finch" — attention-free LM with data-dependent per-channel decay.
+
+Port of ``repro.models.rwkv6`` for the serving path. Time-mix recurrence
+per head (K = V = head size):
+
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T          (state  S: (K, V))
+    y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+
+with data-dependent decay ``w_t = exp(-exp(w0 + tanh(x W_d1) W_d2))`` and
+bonus ``u`` for the current token. Prefill runs the chunked form
+(``kernels/rwkv6_chunk``): with ``cfg.attn_impl == "flash"`` through
+``ops.wkv6`` — kernel K5 on a CUDA tensor, its plain version on a CPU one —
+and with ``"xla"`` through the plain version ``wkv6_chunked``. Either takes
+any prompt length (the reference asserts ``S % min(32, S) == 0``). Decode
+is the plain recurrence ``wkv6_step`` (kernels/rwkv6_chunk) in PyTorch
+ops; the reference has no
+kernel for it, so K5 launches once per layer per prefill and never in
+decode.
+
+The parameter dict has the dense transformer's outer shape (``embed``,
+``layers`` as a list of per-layer dicts, ``final_norm``), so
+``transformer.params_from_jax`` carries the reference's tree. The state
+keeps the reference's layout — ``tm_last`` and ``cm_last`` (L, B, d) in
+the activation dtype, ``wkv`` (L, B, H, K, K) in f32 — and the serving
+cache adds ``index``, the number of tokens seen, kept on the host as an
+int. ``forward_hidden`` writes each layer's new state into the state it is
+given, in place (one allocation per prefill, none per decode step beyond
+the step's own temporaries). ``loss_fn`` waits for the trainer slice; the
+reference's sharding hints (``constrain``) have no counterpart here.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.rwkv6_chunk import (
+    wkv6_chunked_plain as wkv6_chunked, wkv6_step)
+from repro_torch.models.common import (Params, adtype, apply_norm,
+                                       dense_init, embed_tokens,
+                                       init_embeddings, init_norm,
+                                       logits_head, pdtype)
+
+DECAY_LORA = 64
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _heads(cfg: ModelConfig):
+    K = cfg.rwkv_head_dim
+    H = cfg.d_model // K
+    return H, K
+
+
+def init_block(cfg: ModelConfig, generator: torch.Generator,
+               device) -> Params:
+    """One layer with the reference's ``init_block`` distributions: mixes
+    0.5, base decay -6, ``wd2`` × 0.01, bonus 0.1, groupnorm ones/zeros,
+    every other matrix ``dense_init`` × 0.02."""
+    d, pd = cfg.d_model, pdtype(cfg)
+    H, K = _heads(cfg)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=pd, device=device)
+
+    def dense(shape, scale=0.02):
+        return dense_init(shape, generator, device, pd, scale)
+
+    return {
+        "norm1": init_norm(cfg, device),
+        "norm2": init_norm(cfg, device),
+        # time-mix
+        "mu": full((5, d), 0.5),          # r,k,v,g,w token-shift mixes
+        "wr": dense((d, d)),
+        "wk": dense((d, d)),
+        "wv": dense((d, d)),
+        "wg": dense((d, d)),
+        "wo": dense((d, d)),
+        "w0": full((d,), -6.0),           # base decay (w ~ exp(-exp(-6)))
+        "wd1": dense((d, DECAY_LORA)),
+        "wd2": dense((DECAY_LORA, d), scale=0.01),
+        "u": full((H, K), 0.1),           # bonus
+        "gn_w": full((d,), 1.0),          # per-head groupnorm
+        "gn_b": full((d,), 0.0),
+        # channel-mix
+        "cm_mu": full((2, d), 0.5),
+        "cm_k": dense((d, cfg.d_ff)),
+        "cm_v": dense((cfg.d_ff, d)),
+        "cm_r": dense((d, d)),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Params:
+    """Random weights from ``generator`` on ``device``: the reference's
+    ``init`` distributions, not its draws."""
+    return {"embed": init_embeddings(cfg, generator, device),
+            "layers": [init_block(cfg, generator, device)
+                       for _ in range(cfg.num_layers)],
+            "final_norm": init_norm(cfg, device)}
+
+
+# ---------------------------------------------------------------------------
+# Pieces
+# ---------------------------------------------------------------------------
+
+
+def _token_shift(x, x_last):
+    """x (B,S,d); x_last (B,d) carry from the previous segment -> shifted x."""
+    return torch.cat([x_last[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _decay(p: Params, xw):
+    """Data-dependent per-channel log-decay (<= 0). xw (B,S,d) -> lw f32."""
+    dt = xw.dtype
+    lora = torch.tanh(xw @ p["wd1"].to(dt)) @ p["wd2"].to(dt)
+    return -torch.exp(p["w0"].float() + lora.float())
+
+
+def _tm_projections(cfg: ModelConfig, p: Params, x, x_last):
+    """r, k, v (B,S,H,K), g (B,S,d) and the log-decay lw (B,S,H,K) f32."""
+    H, K = _heads(cfg)
+    B, S, _ = x.shape
+    dt = x.dtype
+    xs = _token_shift(x, x_last)
+    mu = p["mu"].to(dt)
+    xr, xk, xv, xg, xw = (x + (xs - x) * mu[i] for i in range(5))
+    r = (xr @ p["wr"].to(dt)).reshape(B, S, H, K)
+    k = (xk @ p["wk"].to(dt)).reshape(B, S, H, K)
+    v = (xv @ p["wv"].to(dt)).reshape(B, S, H, K)
+    g = xg @ p["wg"].to(dt)
+    lw = _decay(p, xw).reshape(B, S, H, K)
+    return r, k, v, g, lw
+
+
+def _head_groupnorm(y, w, b, eps: float = 1e-5):
+    """y (B,S,H,K) -> layernorm per head in f32, scaled by (d,) params."""
+    B, S, H, K = y.shape
+    yf = y.float()
+    mu = torch.mean(yf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(yf - mu), dim=-1, keepdim=True)
+    yn = ((yf - mu) * torch.rsqrt(var + eps)).reshape(B, S, H * K)
+    return yn * w.float() + b.float()
+
+
+def time_mix(cfg: ModelConfig, p: Params, x, x_last, wkv_state, *,
+             single_step: bool):
+    """Full time-mix sublayer. Returns (out, new_x_last, new_state)."""
+    r, k, v, g, lw = _tm_projections(cfg, p, x, x_last)
+    rf, kf, vf = (a.float() for a in (r, k, v))
+    u = p["u"].float()
+    if single_step:
+        y, state = wkv6_step(rf[:, 0], kf[:, 0], vf[:, 0], lw[:, 0], u,
+                             wkv_state)
+        y = y[:, None]
+    elif cfg.attn_impl == "flash":
+        y, state = ops.wkv6(rf, kf, vf, lw, u, wkv_state)
+    else:
+        y, state = wkv6_chunked(rf, kf, vf, lw, u, wkv_state)
+    y = _head_groupnorm(y, p["gn_w"], p["gn_b"])
+    out = (y.to(x.dtype) * F.silu(g)) @ p["wo"].to(x.dtype)
+    return out, x[:, -1, :], state
+
+
+def channel_mix(cfg: ModelConfig, p: Params, x, x_last):
+    """ReLU² key, sigmoid receptance gate. Returns (out, new_x_last)."""
+    dt = x.dtype
+    xs = _token_shift(x, x_last)
+    mu = p["cm_mu"].to(dt)
+    xk = x + (xs - x) * mu[0]
+    xr = x + (xs - x) * mu[1]
+    kk = torch.square(torch.relu(xk @ p["cm_k"].to(dt)))
+    out = torch.sigmoid(xr @ p["cm_r"].to(dt)) * (kk @ p["cm_v"].to(dt))
+    return out, x[:, -1, :]
+
+
+def block(cfg: ModelConfig, p: Params, x, state, *, single_step: bool):
+    """state = (tm_last (B,d), cm_last (B,d), wkv (B,H,K,V))."""
+    tm_last, cm_last, wkv = state
+    h = apply_norm(cfg, p["norm1"], x)
+    out, tm_last, wkv = time_mix(cfg, p, h, tm_last, wkv,
+                                 single_step=single_step)
+    x = x + out
+    h = apply_norm(cfg, p["norm2"], x)
+    out, cm_last = channel_mix(cfg, p, h, cm_last)
+    return x + out, (tm_last, cm_last, wkv)
+
+
+# ---------------------------------------------------------------------------
+# Model API
+# ---------------------------------------------------------------------------
+
+
+def make_state(cfg: ModelConfig, batch: int, device) -> Params:
+    """Zero recurrent state on ``device``: token-shift carries (L, B, d) in
+    the activation dtype, WKV states (L, B, H, K, K) in f32."""
+    H, K = _heads(cfg)
+    L, d = cfg.num_layers, cfg.d_model
+    return {"tm_last": torch.zeros((L, batch, d), dtype=adtype(cfg),
+                                   device=device),
+            "cm_last": torch.zeros((L, batch, d), dtype=adtype(cfg),
+                                   device=device),
+            "wkv": torch.zeros((L, batch, H, K, K), dtype=torch.float32,
+                               device=device)}
+
+
+def forward_hidden(cfg: ModelConfig, params: Params, tokens,
+                   state: Optional[Params] = None, *,
+                   single_step: bool = False):
+    """tokens (B,S) -> (final-normed hidden (B,S,d), state). ``state``
+    (``make_state``'s layout; zeros when None) is advanced in place, layer
+    by layer, and returned."""
+    if state is None:
+        state = make_state(cfg, tokens.shape[0], tokens.device)
+    x = embed_tokens(cfg, params["embed"], tokens)
+    for l, lp in enumerate(params["layers"]):
+        x, (tl, cl, wk) = block(cfg, lp, x,
+                                (state["tm_last"][l], state["cm_last"][l],
+                                 state["wkv"][l]),
+                                single_step=single_step)
+        state["tm_last"][l] = tl
+        state["cm_last"][l] = cl
+        state["wkv"][l] = wk
+    return apply_norm(cfg, params["final_norm"], x), state
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens,
+            capacity: Optional[int] = None):
+    """Process the prompt (B, S); returns (last-token logits (B,1,V),
+    cache). The state's size does not depend on the sequence, so
+    ``capacity`` (the engine's KV budget) is accepted and unused."""
+    x, state = forward_hidden(cfg, params, tokens)
+    logits = logits_head(cfg, params["embed"], x[:, -1:, :])
+    state["index"] = int(tokens.shape[1])
+    return logits, state
+
+
+def decode_step(cfg: ModelConfig, params: Params, token, cache):
+    """token (B,1) int; cache from prefill/make_cache. One serve step:
+    returns (logits (B,1,V), cache) with the state advanced in place and
+    the index (a host int) incremented."""
+    index = int(cache.get("index", 0))
+    state = {n: t for n, t in cache.items() if n != "index"}
+    x, _ = forward_hidden(cfg, params, token, state, single_step=True)
+    logits = logits_head(cfg, params["embed"], x)
+    cache["index"] = index + 1
+    return logits, cache

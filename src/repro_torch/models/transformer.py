@@ -26,11 +26,12 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (Params, adtype, apply_norm,
-                                       dense_init, embed_tokens, init_norm,
-                                       logits_head, pdtype)
+                                       embed_tokens, init_embeddings,
+                                       init_norm, logits_head)
 from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.rope import apply_rotary, positional_angles
 
@@ -45,10 +46,11 @@ def require_dense(cfg: ModelConfig, rope: bool = False) -> None:
     if cfg.family != "dense" or cfg.pos_type not in pos_ok:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / pos_type "
-            f"{cfg.pos_type!r} join the port with their model slices "
-            "(MoE, vlm, SSM, audio); the pipeline server serves dense "
-            "models with learned positions (GPT-2), the KV-cache engine "
-            "also RoPE (TinyLlama)")
+            f"{cfg.pos_type!r} is not served here; the pipeline server "
+            "serves dense models with learned positions (GPT-2), the "
+            "KV-cache engine (serve --mode engine) also RoPE (TinyLlama) "
+            "and RWKV6; MoE, vlm, hybrid and audio join the port with "
+            "their model slices")
 
 
 # ---------------------------------------------------------------------------
@@ -71,16 +73,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights from ``generator`` on ``device``: the reference's
     ``init`` distributions, not its draws."""
     require_dense(cfg, rope=True)
-    emb: Params = {"tok": dense_init((cfg.vocab_size, cfg.d_model),
-                                     generator, device, pdtype(cfg))}
-    if cfg.pos_type == "learned":
-        emb["pos"] = dense_init((cfg.max_position, cfg.d_model), generator,
-                                device, pdtype(cfg))
-    if not cfg.tie_embeddings:
-        emb["head"] = dense_init((cfg.vocab_size, cfg.d_model), generator,
-                                 device, pdtype(cfg))
     return {
-        "embed": emb,
+        "embed": init_embeddings(cfg, generator, device),
         "layers": [init_block(cfg, generator, device)
                    for _ in range(cfg.num_layers)],
         "final_norm": init_norm(cfg, device),
@@ -99,9 +93,12 @@ def _unstack(tree: Any, i: int) -> Any:
     return tree[i]
 
 
-def params_from_jax(tree: Dict[str, Any], device="cpu") -> Params:
+def params_from_jax(tree: Dict[str, Any], device=None) -> Params:
     """The reference's parameter pytree (leaves as numpy arrays) -> this
-    package's parameter dict on ``device``.
+    package's parameter dict on ``device`` (``cuda`` unless the caller
+    passes another; ``resolve_device``). Serves every family whose tree
+    has this ``embed`` / ``layers`` / ``final_norm`` shape (the dense
+    transformer and RWKV6).
 
     ``tree["layers"]`` is stacked along a leading layer axis in the
     reference; it becomes a list with one dict per layer. Every other leaf
@@ -111,6 +108,7 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Params:
     while isinstance(first, dict):
         first = next(iter(first.values()))
     n = int(np.asarray(first).shape[0])
+    device = resolve_device(device)
     out = {k: _to_torch(v, device) for k, v in tree.items() if k != "layers"}
     stacked = _to_torch(layers, device)
     out["layers"] = [_unstack(stacked, i) for i in range(n)]
@@ -194,10 +192,12 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
 
 
 def make_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
-               device="cpu"):
-    """An empty cache: zero K/V of (L, batch, capacity, Hkv, D) in the
-    activation dtype (or ``dtype``), index 0."""
+               device=None):
+    """An empty cache on ``device`` (``cuda`` unless the caller passes
+    another): zero K/V of (L, batch, capacity, Hkv, D) in the activation
+    dtype (or ``dtype``), index 0."""
     dtype = dtype or adtype(cfg)
+    device = resolve_device(device)
     shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads,
              cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -35,25 +35,28 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.api import _require_served, make_cache  # noqa: F401
-from repro_torch.models.common import adtype
+from repro_torch.models.api import make_cache
+
+#: the index, counted as the reference counts its int32 scalar
+_INDEX_BYTES = np.dtype(np.int32).itemsize
 
 
 def cache_bytes(cfg: ModelConfig, batch: int, capacity: int) -> int:
-    """Bytes of ``make_cache(cfg, batch, capacity)``, computed from its
-    shapes and dtypes (nothing is allocated): K and V of
-    (L, batch, capacity, Hkv, D) in the activation dtype, plus the index,
-    counted as the reference counts its int32 scalar."""
-    _require_served(cfg)
-    kv = (cfg.num_layers * batch * capacity * cfg.num_kv_heads
-          * cfg.head_dim * adtype(cfg).itemsize)
-    return 2 * kv + np.dtype(np.int32).itemsize
+    """Bytes of ``make_cache(cfg, batch, capacity)`` plus its index,
+    summed over the tensors of that cache built on the ``meta`` device
+    (shapes and dtypes only, nothing allocated), as the reference sums
+    its ``jax.eval_shape``. The layout is the model module's own: dense
+    K/V grow with ``capacity``, the RWKV6 state does not."""
+    cache = make_cache(cfg, batch, capacity, device="meta")
+    return sum(t.numel() * t.element_size() for t in cache.values()
+               if isinstance(t, torch.Tensor)) + _INDEX_BYTES
 
 
 def grow_cache(cache, new_capacity: int):
     """Grow the sequence axis of the 5-D KV tensors to ``new_capacity``
     (zero-padded; a new dict, the input is untouched). Shrinking is a
-    no-op, never a truncation; other entries pass through."""
+    no-op, never a truncation; other entries, the RWKV6 state among them,
+    pass through."""
     out = {}
     for name, leaf in cache.items():
         if name in ("k", "v", "sk", "sv") and isinstance(leaf, torch.Tensor) \

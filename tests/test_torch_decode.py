@@ -263,7 +263,7 @@ def test_prefill_and_decode_steps_match_reference(model_params, act, impl):
     # the reference's flash prefill is the oracle off-TPU; its decode is
     # attention_direct either way
     jcfg = dataclasses.replace(cfg, attn_impl="xla")
-    tp = params_from_jax(jp)
+    tp = params_from_jax(jp, device="cpu")
     toks = np.random.default_rng(7).integers(1, 128, size=(2, 9))
     jl, jc = jtf.prefill(jcfg, jp, jnp.asarray(toks, jnp.int32), capacity=16)
     with torch.inference_mode():
@@ -293,7 +293,7 @@ def test_prefill_and_decode_steps_match_reference(model_params, act, impl):
 
 def test_make_cache_layout():
     tcfg = tget_config("tinyllama-1.1b").reduced(vocab_size=128)
-    c = ttf.make_cache(tcfg, 3, 11)
+    c = ttf.make_cache(tcfg, 3, 11, device="cpu")
     assert c["k"].shape == (2, 3, 11, 2, 32) and c["index"] == 0
     assert c["k"].dtype == torch.bfloat16 and c["k"][1].is_contiguous()
     jc = jtf.make_cache(get_config("tinyllama-1.1b").reduced(vocab_size=128),

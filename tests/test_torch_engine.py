@@ -69,8 +69,8 @@ def test_engine_greedy_tokens_match_reference(model_params, impl):
     arch, jp = model_params
     cfg, tcfg = _cfgs(arch, impl)
     jeng = JServingEngine(cfg, jp, max_batch=3)
-    teng = ServingEngine(tcfg, params_from_jax(jp), max_batch=3,
-                         device="cpu")
+    teng = ServingEngine(tcfg, params_from_jax(jp, device="cpu"),
+                         max_batch=3, device="cpu")
     for prompt, m in _queue():
         jeng.submit(JSubmitSpec(prompt=prompt, max_new_tokens=m))
         teng.submit(SubmitSpec(prompt=prompt, max_new_tokens=m))
@@ -85,7 +85,8 @@ def test_engine_greedy_tokens_match_reference(model_params, impl):
     # an EOS id stops its stream early, on both sides
     eos = want[3][1][1]
     jeng2 = JServingEngine(cfg, jp)
-    teng2 = ServingEngine(tcfg, params_from_jax(jp), device="cpu")
+    teng2 = ServingEngine(tcfg, params_from_jax(jp, device="cpu"),
+                          device="cpu")
     prompt = _queue()[3][0]
     jr = jeng2.submit(JSubmitSpec(prompt=prompt, max_new_tokens=5,
                                   eos_id=int(eos)))
@@ -102,7 +103,8 @@ def test_engine_bf16_runs_and_counts(model_params):
     decode steps per group."""
     arch, jp = model_params
     _, tcfg = _cfgs(arch, "flash", "bfloat16")
-    eng = ServingEngine(tcfg, params_from_jax(jp), device="cpu")
+    eng = ServingEngine(tcfg, params_from_jax(jp, device="cpu"),
+                        device="cpu")
     for prompt, _ in _queue(1):
         eng.submit(SubmitSpec(prompt=prompt, max_new_tokens=4))
     done = eng.run_batch()
@@ -128,14 +130,14 @@ def test_cache_bytes_matches_reference(arch, act, batch, cap):
         assert cache_bytes(tcfg, batch, cap) == jcache_bytes(cfg, batch, cap)
     small = dataclasses.replace(tget_config(arch).reduced(),
                                 activation_dtype=act)
-    c = make_cache(small, batch, 9)
+    c = make_cache(small, batch, 9, device="cpu")
     assert cache_bytes(small, batch, 9) == \
         sum(c[n].numel() * c[n].element_size() for n in ("k", "v")) + 4
 
 
 def test_grow_cache_zero_pads_and_preserves():
     tcfg = tget_config("tinyllama-1.1b").reduced(vocab_size=128)
-    cache = make_cache(tcfg, 2, 4)
+    cache = make_cache(tcfg, 2, 4, device="cpu")
     gen = torch.Generator().manual_seed(0)
     for n in ("k", "v"):
         cache[n].copy_(torch.randn(cache[n].shape, generator=gen))
@@ -190,7 +192,8 @@ def test_submit_shim_warns_and_ids_match_reference(model_params):
     arch, jp = model_params
     cfg, tcfg = _cfgs(arch)
     jeng = JServingEngine(cfg, jp)
-    teng = ServingEngine(tcfg, params_from_jax(jp), device="cpu")
+    teng = ServingEngine(tcfg, params_from_jax(jp, device="cpu"),
+                         device="cpu")
     with pytest.deprecated_call():
         req = teng.submit(np.arange(1, 5), max_new_tokens=2)
     assert req.max_new_tokens == 2 and req.request_id == 0
@@ -222,19 +225,23 @@ def test_build_model_serves_dense_and_names_the_rest():
     assert "wg" in lp["ffn"] and "bias" not in lp["norm1"]
     assert params["embed"]["head"].shape == (64, tcfg.d_model)
     assert "pos" not in params["embed"]
-    assert model.make_cache(2, 5)["k"].shape == (2, 2, 5, 2, 32)
+    assert model.make_cache(2, 5, device="cpu")["k"].shape == \
+        (2, 2, 5, 2, 32)
     for fam, slice_name in (("moe", "MoE"), ("vlm", "vlm"),
-                            ("ssm", "RWKV6"), ("hybrid", "Mamba2"),
-                            ("audio", "Whisper")):
+                            ("hybrid", "Mamba2"), ("audio", "Whisper")):
         with pytest.raises(NotImplementedError, match=slice_name):
             tapi.build_model(dataclasses.replace(tcfg, family=fam))
+    # the ssm family (RWKV6) is served since its slice landed
+    rwkv = tapi.build_model(tget_config("rwkv6-1.6b").reduced(vocab_size=64))
+    assert set(rwkv.make_cache(2, 5, device="cpu")) == \
+        {"tm_last", "cm_last", "wkv", "index"}
 
 
 def test_params_from_jax_carries_tinyllama():
     cfg = get_config("tinyllama-1.1b").reduced(vocab_size=128)
     jp = jax.tree.map(np.asarray,
                       jbuild_model(cfg).init(jax.random.PRNGKey(2)))
-    tp = params_from_jax(jp)
+    tp = params_from_jax(jp, device="cpu")
     assert len(tp["layers"]) == cfg.num_layers
     for path in (("ffn", "wg"), ("ffn", "wi"), ("attn", "wk"),
                  ("norm1", "weight"), ("norm2", "weight")):

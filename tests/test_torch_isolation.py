@@ -122,3 +122,38 @@ def test_serve_engine_mode_without_device_or_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--mode", "engine", "--reduced", "--tokens", "2",
                     "--requests", "1"])
+
+
+def test_make_cache_and_params_without_device_or_cuda_raise(monkeypatch):
+    """The model API defaults to the card too: ``make_cache`` (the api's,
+    ``Model.make_cache`` and the transformer's) and ``params_from_jax``
+    with no device and no CUDA raise; asked explicitly, the CPU is
+    fine."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, transformer
+    from repro_torch.models.transformer import init_params, params_from_jax
+    dense = get_config("tinyllama-1.1b").reduced(vocab_size=64)
+    rwkv = get_config("rwkv6-1.6b").reduced(vocab_size=64)
+    tree = {"embed": {"tok": np.zeros((64, 128), np.float32)},
+            "layers": {"w": np.zeros((2, 3), np.float32)},
+            "final_norm": {"weight": np.ones((128,), np.float32)}}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda **d: api.make_cache(dense, 2, 5, **d),
+        lambda **d: api.make_cache(rwkv, 2, 5, **d),
+        lambda **d: api.build_model(dense).make_cache(2, 5, **d),
+        lambda **d: api.build_model(rwkv).make_cache(2, 5, **d),
+        lambda **d: transformer.make_cache(dense, 2, 5, **d),
+        lambda **d: params_from_jax(tree, **d),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        out = call(device="cpu")
+        leaves = [out["embed"]["tok"]] if "embed" in out else \
+            [t for t in out.values() if isinstance(t, torch.Tensor)]
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
+    params = init_params(dense, torch.Generator().manual_seed(0), "cpu")
+    assert params["embed"]["tok"].device.type == "cpu"

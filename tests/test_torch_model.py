@@ -67,7 +67,7 @@ def test_reduced_config_is_gqa_4_over_2():
 
 
 def test_params_from_jax_round_trip(ref_params):
-    tp = params_from_jax(ref_params)
+    tp = params_from_jax(ref_params, device="cpu")
     assert len(tp["layers"]) == 4
     back = {k: np.stack([lp[k1][k2].numpy() for lp in tp["layers"]])
             for k, (k1, k2) in {"wq": ("attn", "wq"),
@@ -105,7 +105,7 @@ def test_forward_logits_match_reference(ref_params, act, impl):
     toks = _tokens()
     x, _, _ = jforward_hidden(cfg, ref_params, jnp.asarray(toks, jnp.int32))
     want = np.asarray(jlogits_head(cfg, ref_params["embed"], x), np.float32)
-    tp = params_from_jax(ref_params)
+    tp = params_from_jax(ref_params, device="cpu")
     with torch.inference_mode():
         h = forward_hidden(tcfg, tp, torch.as_tensor(toks))
         got = logits_head(tcfg, tp["embed"], h)
@@ -119,7 +119,7 @@ def test_stage_fns_match_reference(ref_params, act, impl):
     cfg, tcfg = _cfgs(act, impl)
     toks = _tokens(9, seed=1)
     jfns = jmake_stage_fns(cfg, ref_params, StagePartition.uniform(4, 2))
-    tfns = make_stage_fns(tcfg, params_from_jax(ref_params),
+    tfns = make_stage_fns(tcfg, params_from_jax(ref_params, device="cpu"),
                           TStagePartition.uniform(4, 2))
     assert len(jfns) == len(tfns) == 2
     jp = (jnp.asarray(toks, jnp.int32), None)

@@ -50,7 +50,8 @@ REDUCED = dict(num_layers=4, vocab_size=128, remat=False,
 def models():
     cfg = get_config("gpt2-large").reduced(**REDUCED)
     params = build_model(cfg).init(jax.random.PRNGKey(7))
-    tparams = params_from_jax(jax.tree.map(np.asarray, params))
+    tparams = params_from_jax(jax.tree.map(np.asarray, params),
+                              device="cpu")
     # one set of jitted reference stage fns for every reference server in
     # this module, so each prefix shape compiles once
     stage_fns = make_stage_fns(cfg, params, StagePartition.uniform(4, 2))
