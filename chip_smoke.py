@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
 Phases, each of which fails the run (non-zero exit) when it fails (they
-run in the order 1, 14, 10, 2, 11-13, 3-9: the newest paths first, so that
-a fault there shows before the long routing phases):
+run in the order 1, 15, 14, 10, 2, 11-13, 3-9: the newest paths first, so
+that a fault there shows before the long routing phases):
 
 1. build  — compiles the hand-written kernels from ``src/repro_torch/csrc``
    with nvcc for sm_90a, in parallel (one nvcc per source).
@@ -20,7 +20,8 @@ a fault there shows before the long routing phases):
    (the +inf case); K3 ``flash_attention`` within 2e-4 (f32) / 2e-2 (bf16)
    absolute at Hq = Hkv = 20, D = 64, S in {8, 100, 128, 300, 1024}, plus
    GQA and non-causal shapes and the engine's prefill shapes (GPT-2 Large
-   B = 4, S = 1024; TinyLlama B = 4, S = 2048, Hq = 32, Hkv = 4). Each
+   B = 4, S = 1024; TinyLlama B = 4, S = 2048, Hq = 32, Hkv = 4; Zamba2's
+   shared block B = 4, S = 2048, Hq = Hkv = 32, D = 80, timed). Each
    kernel is timed beside its plain version and its bound (and K3 beside
    ``scaled_dot_product_attention``, a yardstick the port never calls).
 3. main path — full-width GPT-2 Large (36 layers, d_model 1280, vocab
@@ -58,30 +59,38 @@ a fault there shows before the long routing phases):
 10. K4 — ``decode_attention`` against its plain version on the card within
    2e-4 (f32) / 2e-2 (bf16) absolute: GPT-2 Large's decode shape (B = 4,
    Hq = Hkv = 20, D = 64, S = 1120, kv_len in {1, 37, 1056, 1120}),
-   TinyLlama's (B = 4, Hq = 32, Hkv = 4, D = 64, S = 2144), a ragged
+   TinyLlama's (B = 4, Hq = 32, Hkv = 4, D = 64, S = 2144), Zamba2's
+   (B = 4, Hq = Hkv = 32, D = 80, S = 2144, kv_len 2080), a ragged
    S = 1000 and small shapes; each timed beside its plain version, its
    bound and ``scaled_dot_product_attention`` with a live mask (a
    yardstick the port never calls).
 11. KV-cache engine — ``ServingEngine.run_batch`` at full width, bf16,
-   ``attn_impl="flash"``: rwkv6-1.6b (24 layers, random weights from the
-   seed) with 4 prompts of 8 tokens and 4 of 2048, gpt2-large with 4 of 8
-   and 4 of 1024, tinyllama-1.1b with 4 of 2048, 32 new tokens each, after
-   a warm-up run of the same requests. Fails unless every stream gets its
-   tokens, the cache's bytes equal ``cache_bytes``, and for the dense
-   models K4 launched once per layer of every decode step and K3 once per
-   layer of every prefill (K5 never), for RWKV6 K5 once per layer of every
-   prefill (48) and K3 and K4 never. Reports tokens/s, prefill ms, decode
-   ms per step and peak device memory.
+   ``attn_impl="flash"``: zamba2-2.7b (54 Mamba2 blocks and 9 applications
+   of its shared block, 2,396,455,840 parameters, random weights from the
+   seed) and rwkv6-1.6b (24 layers) with 4 prompts of 8 tokens and 4 of
+   2048 each, gpt2-large with 4 of 8 and 4 of 1024, tinyllama-1.1b with 4
+   of 2048, 32 new tokens each, after a warm-up run of the same requests.
+   Fails unless every stream gets its tokens, the cache's bytes equal
+   ``cache_bytes``, and for the dense models K4 launched once per layer of
+   every decode step and K3 once per layer of every prefill (K5 and K6
+   never), for RWKV6 K5 once per layer of every prefill (48) and no other
+   kernel, for Zamba2 K6 once per Mamba2 block of every prefill (108), K3
+   once per shared-block application of every prefill (18), K4 once per
+   application of every decode step (558) and K5 never. Reports tokens/s,
+   prefill ms, decode ms per step and peak device memory.
 12. engine f32 parity — the same engine in float32 through the kernels
    and through the plain path (``attn_impl="xla"``) on the card, for a
    gpt2-large.reduced-sized model, full-width TinyLlama, an
    rwkv6-1.6b.reduced-sized model and full-width RWKV6 (prompts of 64 and
-   100 tokens: across chunks, with a ragged tail), 8 new tokens: the
+   100 tokens: across chunks, with a ragged tail), a
+   zamba2-2.7b.reduced-sized model (two groups of two blocks) and
+   full-width Zamba2 (prompts of 8 and 100 tokens), 8 new tokens: the
    greedy tokens must be identical (else the top-2 logit margin at the
    first differing step is printed and the run fails).
 13. engine profile — ``torch.profiler`` over decode steps of each model
-   (and over one 4 x 2048 RWKV6 prefill): the device's busy share and
-   K4's (K5's) device time against the weight casts and the matmuls.
+   (and over one 4 x 2048 prefill of RWKV6 and of Zamba2): the device's
+   busy share and K4's (K5's, K6's) device time against the weight casts
+   and the matmuls.
 14. K5 — ``wkv6_chunked`` against its plain version on the card: the
    engine's prefill shape (B = 4, S = 2048, H = 32, K = 64) on model-like
    inputs within 1e-4 x max|plain|, and within 5e-4 absolute on the
@@ -89,6 +98,15 @@ a fault there shows before the long routing phases):
    nonzero state0, lw = -20 and the three shapes of
    ``tests/test_kernels.py``; y and the final state, each shape timed
    beside its plain version and its bound, per call and on the device.
+15. K6 — ``ssd_chunked`` against its plain version on the card: the
+   Zamba2 engine's prefill shape (B = 4, S = 2048, H = 80, P = N = 64) on
+   model-like inputs within 1e-4 x max|plain|, and on the reference test's
+   distribution within 1e-5 x max|plain| at the engine's widths (B = 4
+   S = 8, a ragged S = 1000, a nonzero h0, la = -20 dt) and 5e-4 absolute
+   at the two shapes of ``tests/test_kernels.py``;
+   y and the final state, each shape timed beside its plain version and
+   its bound (with both the bytes and the operations figure), per call and
+   on the device.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and the result line
@@ -98,6 +116,7 @@ script exits non-zero before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -125,11 +144,15 @@ GEN_TOKENS = 4
 #: the K2 timing row the kernels line reports: (topology, R)
 K2_ROW = ("scaling1000", 64)
 #: the KV-cache engine's runs: (arch, [(prompt length, requests), ...])
-ENGINE_RUNS = (("rwkv6-1.6b", ((8, 4), (2048, 4))),
+ENGINE_RUNS = (("zamba2-2.7b", ((8, 4), (2048, 4))),
+               ("rwkv6-1.6b", ((8, 4), (2048, 4))),
                ("gpt2-large", ((8, 4), (1024, 4))),
                ("tinyllama-1.1b", ((2048, 4),)))
 ENGINE_TOKENS = 32
 PARITY_TOKENS = 8
+#: zamba2-2.7b's parameters at full width, as the reference's
+#: ``jax.eval_shape`` of its ``init`` counts them
+ZAMBA2_PARAMETERS = 2_396_455_840
 
 
 def sync() -> None:
@@ -205,7 +228,8 @@ def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all(["tropical_route.cu", "flash_attention.cu",
-                            "decode_attention.cu", "rwkv6_chunk.cu"])
+                            "decode_attention.cu", "rwkv6_chunk.cu",
+                            "ssd_chunk.cu"])
     secs = time.perf_counter() - t0
     for src, text in logs.items():
         for line in text.splitlines():
@@ -427,9 +451,10 @@ def phase_k3():
               for S in (8, 100, 128, 200, 300, 1024)]
     shapes += [(2, 200, 8, 2, 128, True), (2, 96, 4, 2, 32, False),
                (1, 77, 6, 3, 16, True)]
-    # the engine's prefill shapes: GPT-2 Large's 4 x 1024 and TinyLlama's
-    # 4 x 2048 at G = 8
-    shapes += [(4, 1024, 20, 20, 64, True), (4, 2048, 32, 4, 64, True)]
+    # the engine's prefill shapes: GPT-2 Large's 4 x 1024, TinyLlama's
+    # 4 x 2048 at G = 8 and Zamba2's shared block, 4 x 2048 at D = 80
+    shapes += [(4, 1024, 20, 20, 64, True), (4, 2048, 32, 4, 64, True),
+               (4, 2048, 32, 32, 80, True), (2, 100, 4, 4, 80, False)]
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, Hq, Hkv, D, causal in shapes:
@@ -449,7 +474,8 @@ def phase_k3():
                     f"causal={causal}: max abs err {err} > {tol[dtype]}")
             row = {"dtype": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv,
                    "D": D, "causal": causal, "max_abs_err": err}
-            if B == 1 and Hq == Hkv == 20 and D == 64:
+            if (B == 1 and Hq == Hkv == 20 and D == 64) or \
+                    (S == 2048 and D == 80):
                 qt, kt, vt = (t.transpose(1, 2).contiguous()
                               for t in (q, k, v))
                 row["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(
@@ -461,7 +487,14 @@ def phase_k3():
                         qt, kt, vt, is_causal=causal), iters=50)
                 row["bound_ms"], row["bound_by"] = k3_bound_ms(
                     B, S, Hq, Hkv, D, dtype, causal)
-                rows[(name, S)] = row
+                if D == 80:
+                    row["device_ms_per_launch"] = device_ms(
+                        lambda: fa.flash_attention_cuda(
+                            q, k, v, causal=causal), "flash_kernel<",
+                        iters=5)
+                    rows[(name, "zamba2-2.7b")] = row
+                else:
+                    rows[(name, S)] = row
             log({"k3": row})
     return rows
 
@@ -886,7 +919,9 @@ def phase_k4():
     shapes = [("gpt2-large", 4, 1120, 20, 20, 64, (1, 37, 1056, 1120), True),
               ("tinyllama-1.1b", 4, 2144, 32, 4, 64, (1, 37, 2080, 2144),
                True),
+              ("zamba2-2.7b", 4, 2144, 32, 32, 80, (2080,) * 4, True),
               ("ragged", 3, 1000, 16, 2, 128, (1, 129, 1000), True),
+              ("small-d80", 2, 77, 8, 2, 80, (1, 77), False),
               ("small-gqa", 2, 64, 4, 2, 32, (1, 64), False),
               ("small-mha", 1, 128, 5, 5, 16, (77,), False),
               ("small-mqa", 2, 200, 8, 1, 64, (200, 3), False)]
@@ -1033,6 +1068,117 @@ def phase_k5():
     return rows
 
 
+def k6_bound_ms(B, S, H, P, N) -> tuple:
+    """Least time for the SSD scan on this card: x read and y written once,
+    dt, la, Bm, Cm, h0 read and the final state written once (f32), against
+    the operations the function needs at the FP32 peak. Per token and head
+    2 N P for the state update and 2 N P for the inter-chunk output; per
+    chunk of c tokens (C = 64, the last one ragged) and head the lower
+    triangle s <= t of the intra-chunk product, c (c + 1) / 2 entries of
+    2 P, and per chunk and batch row that triangle of C . B^T (shared by the
+    heads), c (c + 1) / 2 entries of 2 N. The upper triangle, which a
+    chunked kernel may compute and mask, carries no data."""
+    C = 64
+    nbytes = 4 * (2 * B * S * H * P + 2 * B * S * H + 2 * B * S * N
+                  + 2 * B * H * N * P)
+    tri = (S // C) * C * (C + 1) + (S % C) * (S % C + 1)  # sum of c (c + 1)
+    flops = B * (H * (4 * N * P * S + P * tri) + N * tri)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", t_bytes, t_ops)
+
+
+def k6_inputs(B, S, H, P, N, dist, gen, state=False, decay=None):
+    """x, dt, la, Bm, Cm, h0 on the card. ``dist="ref"``: the reference
+    test's distribution (normal x, Bm, Cm; dt = softplus(N); la =
+    -exp(N - 1) dt, or ``decay`` dt). ``dist="model"``: what the engine's
+    prefill gives at init (x, Bm, Cm = silu of the depthwise conv of a
+    unit-scale projection, ~silu(0.2 N); dt = softplus(N) from dt_bias = 0;
+    la = -dt from A_log = 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.float32)
+    dt = F.softplus(randn(B, S, H))
+    if dist == "model":
+        x, Bm, Cm = (F.silu(0.2 * randn(*shape)) for shape in
+                     ((B, S, H, P), (B, S, N), (B, S, N)))
+        la = -dt
+    else:
+        x, Bm, Cm = randn(B, S, H, P), randn(B, S, N), randn(B, S, N)
+        la = (-torch.exp(randn(B, S, H) - 1.0) if decay is None
+              else torch.full_like(dt, float(decay))) * dt
+    h0 = randn(B, H, N, P) if state else \
+        torch.zeros((B, H, N, P), device=DEVICE)
+    return x, dt, la, Bm, Cm, h0
+
+
+def phase_k6():
+    """K6 against its plain version: the engine's prefill shape on
+    model-like inputs (1e-4 x max|plain|), and the reference test's
+    distribution at a short, a ragged, a nonzero-state and a strong-decay
+    shape (1e-5 x max|plain|) and at the reference test's two shapes (5e-4
+    absolute); y and the final state. Every shape timed beside its plain
+    version and its bound."""
+    import torch
+    from repro_torch.kernels import ssd_chunk as sk
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    # (name, B, S, H, P, N, dist, nonzero h0, constant decay)
+    shapes = [("full-width", 4, 2048, 80, 64, 64, "model", False, None),
+              ("short", 4, 8, 80, 64, 64, "ref", False, None),
+              ("ragged", 4, 1000, 80, 64, 64, "ref", False, None),
+              ("state0", 4, 256, 80, 64, 64, "ref", True, None),
+              ("strong-decay", 2, 100, 8, 64, 64, "ref", True, -20.0),
+              ("kernels-test-1", 2, 64, 2, 16, 8, "ref", False, None),
+              ("kernels-test-2", 1, 128, 4, 32, 16, "ref", False, None)]
+    rows = {}
+    for name, B, S, H, P, N, dist, state, decay in shapes:
+        args = k6_inputs(B, S, H, P, N, dist, gen, state, decay)
+        y, h = sk.ssd_chunked_cuda(*args)
+        py, ph = sk.ssd_chunked_plain(*args)
+        sync()
+        finite = bool(torch.isfinite(y).all()) and \
+            bool(torch.isfinite(h).all())
+        err_y = float((y - py).abs().max())
+        err_h = float((h - ph).abs().max())
+        # the reference test's 5e-4 at its own shapes (|y| <= ~50, so
+        # ~1e-5 of scale); 1e-5 of scale for its distribution at the
+        # engine's widths (N = 64: |y| up to ~200); 1e-4 of scale at the
+        # engine's shape on model-like inputs
+        rel = 1e-4 if dist == "model" else 1e-5
+        tol_y = rel * float(py.abs().max())
+        tol_h = rel * float(ph.abs().max())
+        if name.startswith("kernels-test"):
+            tol_y = tol_h = 5e-4
+        if not (finite and err_y <= tol_y and err_h <= tol_h):
+            raise AssertionError(
+                f"K6 {name} B={B} S={S} H={H} P={P} N={N}: finite={finite}, "
+                f"max abs err y {err_y} (tol {tol_y}), state {err_h} (tol "
+                f"{tol_h})")
+        row = {"shape": name, "B": B, "S": S, "H": H, "P": P, "N": N,
+               "inputs": dist, "max_abs_err": max(err_y, err_h),
+               "max_abs_err_y": err_y, "max_abs_err_state": err_h,
+               "tol_y": tol_y, "tol_state": tol_h,
+               "max_abs_y_plain": float(py.abs().max())}
+        big = B * S * H * P > 1 << 22
+        row["ms"] = cuda_ms(lambda: sk.ssd_chunked_cuda(*args),
+                            iters=20 if big else 100)
+        row["device_ms_per_launch"] = device_ms(
+            lambda: sk.ssd_chunked_cuda(*args), "ssd_chunk_kernel<",
+            iters=10 if big else 20)
+        row["plain_ms"] = cuda_ms(lambda: sk.ssd_chunked_plain(*args),
+                                  iters=5 if big else 20, warmup=1)
+        (row["bound_ms"], row["bound_by"], row["bytes_ms"],
+         row["operations_ms"]) = k6_bound_ms(B, S, H, P, N)
+        row["ctas"] = B * H
+        rows[name] = row
+        log({"k6": row})
+    return rows
+
+
 def engine_requests(eng, vocab: int, groups, new_tokens: int):
     """Submit ``groups`` of (prompt length, count) requests, prompts drawn
     from the seed."""
@@ -1107,13 +1253,22 @@ def n_parameters(params) -> int:
 def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     """The engine's kernel launches: a dense model runs K3 once per layer
     of every prefill and K4 once per layer of every decode step; RWKV6
-    runs K5 once per layer of every prefill and no attention kernel."""
+    runs K5 once per layer of every prefill and no attention kernel;
+    Zamba2 runs K6 once per Mamba2 block of every prefill, and K3 (prefill)
+    and K4 (decode step) once per application of its shared block."""
     L = cfg.num_layers
     if cfg.family == "ssm":
         return {"wkv6_chunked": L * prefills, "flash_attention": 0,
-                "decode_attention": 0}
+                "decode_attention": 0, "ssd_chunked": 0}
+    if cfg.family == "hybrid":
+        groups = L // cfg.attn_every
+        return {"ssd_chunked": L * prefills,
+                "flash_attention": groups * prefills,
+                "decode_attention": groups * decode_steps,
+                "wkv6_chunked": 0}
     return {"flash_attention": L * prefills,
-            "decode_attention": L * decode_steps, "wkv6_chunked": 0}
+            "decode_attention": L * decode_steps, "wkv6_chunked": 0,
+            "ssd_chunked": 0}
 
 
 def phase_engine(gpt2_params):
@@ -1161,18 +1316,22 @@ def phase_engine(gpt2_params):
                 raise AssertionError(
                     f"engine {arch}: {name} launched {counts[name]} times, "
                     f"expected {n} ({eng.prefills} prefills, "
-                    f"{eng.decode_steps} decode steps x "
+                    f"{eng.decode_steps} decode steps, "
                     f"{cfg.num_layers} layers)")
         for shape, cap, nbytes in eng.cache_bytes_seen:
             if nbytes != cache_bytes(cfg, shape[0], cap):
                 raise AssertionError(f"engine {arch}: cache of {nbytes} "
                                      f"bytes, cache_bytes says "
                                      f"{cache_bytes(cfg, shape[0], cap)}")
+        n_params = n_parameters(params)
+        if arch == "zamba2-2.7b" and n_params != ZAMBA2_PARAMETERS:
+            raise AssertionError(f"engine {arch}: {n_params} parameters, the "
+                                 f"reference has {ZAMBA2_PARAMETERS}")
         tokens = sum(len(r.output) for r in done)
         row = {"arch": arch, "family": cfg.family,
                "layers": cfg.num_layers, "d_model": cfg.d_model,
                "heads": [cfg.num_heads, cfg.num_kv_heads],
-               "vocab": cfg.vocab_size, "parameters": n_parameters(params),
+               "vocab": cfg.vocab_size, "parameters": n_params,
                "activation_dtype": cfg.activation_dtype,
                "groups": [list(g) for g in groups],
                "new_tokens": ENGINE_TOKENS, "tokens": tokens, "wall_s": wall,
@@ -1187,7 +1346,11 @@ def phase_engine(gpt2_params):
                "max_memory_allocated": peak}
         out[arch] = row
         log({"engine": row})
-        del params
+        # the engines hold the parameters too, inside reference cycles
+        # (their timed closures): drop and collect them, so the next
+        # model's peak memory is its own
+        del params, warm, eng, done
+        gc.collect()
     return out
 
 
@@ -1218,27 +1381,37 @@ def top2_margin(cfg, params, prompt, prefix) -> float:
 
 def phase_engine_parity(gpt2_params):
     """f32: the kernel path and the plain path (attn_impl="xla") give the
-    same greedy tokens, on gpt2-large.reduced- and rwkv6-1.6b.reduced-sized
-    models and on full-width TinyLlama and RWKV6."""
+    same greedy tokens, on gpt2-large.reduced-, rwkv6-1.6b.reduced- and
+    zamba2-2.7b.reduced-sized models and on full-width TinyLlama, RWKV6
+    and Zamba2 (each model's parameters made when its case runs)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
-    small = dataclasses.replace(get_config("gpt2-large").reduced(
-        num_layers=4), attn_impl="flash")
-    small_rwkv = dataclasses.replace(get_config("rwkv6-1.6b").reduced(
-        num_layers=4), attn_impl="flash")
+
+    def reduced(arch, **over):
+        cfg = dataclasses.replace(get_config(arch).reduced(**over),
+                                  attn_impl="flash")
+        return lambda: (cfg, build_model(cfg).init(gen, DEVICE))
+
+    def full(arch):
+        return lambda: engine_params(arch, gpt2_params)
+
     rwkv_groups = ((64, 2), (100, 2))
-    cases = [("gpt2-large.reduced", small,
-              build_model(small).init(gen, DEVICE), ((8, 3), (200, 2))),
-             ("tinyllama-1.1b", *engine_params("tinyllama-1.1b",
-                                                gpt2_params),
-              ((16, 2), (320, 2))),
-             ("rwkv6-1.6b.reduced", small_rwkv,
-              build_model(small_rwkv).init(gen, DEVICE), rwkv_groups),
-             ("rwkv6-1.6b", *engine_params("rwkv6-1.6b", gpt2_params),
-              rwkv_groups)]
-    for name, cfg, params, groups in cases:
+    # prompts across chunks of 64 with a ragged tail (100), and within one
+    zamba_groups = ((8, 2), (100, 2))
+    cases = [("zamba2-2.7b.reduced",
+              reduced("zamba2-2.7b", num_layers=4, attn_every=2),
+              zamba_groups),
+             ("zamba2-2.7b", full("zamba2-2.7b"), zamba_groups),
+             ("gpt2-large.reduced", reduced("gpt2-large", num_layers=4),
+              ((8, 3), (200, 2))),
+             ("tinyllama-1.1b", full("tinyllama-1.1b"), ((16, 2), (320, 2))),
+             ("rwkv6-1.6b.reduced", reduced("rwkv6-1.6b", num_layers=4),
+              rwkv_groups),
+             ("rwkv6-1.6b", full("rwkv6-1.6b"), rwkv_groups)]
+    for name, make, groups in cases:
+        cfg, params = make()
         cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
         plain32 = dataclasses.replace(cfg32, attn_impl="xla")
         k_out, prompts, k_s = engine_tokens(cfg32, params, groups,
@@ -1262,6 +1435,7 @@ def phase_engine_parity(gpt2_params):
         log({"engine_f32_parity": {"model": name, "requests": len(k_out),
                                    "equal": True, "kernel_path_s": k_s,
                                    "plain_path_s": p_s}})
+        del params
 
 
 def profile_window(fn):
@@ -1308,9 +1482,9 @@ def profile_summary(wall, kernels, ops_ms, kernel_name: str, tag: str):
 def phase_engine_profile(gpt2_params):
     """Device time by kernel over decode steps of each engine model
     (batch 4, state filled by a prefill outside the profile), and for
-    RWKV6 over one 4 x 2048 prefill too: the device's busy share and the
-    hand-written kernel's share (K4 in decode, K5 in RWKV6's prefill)
-    against the weight casts and the matmuls."""
+    RWKV6 and Zamba2 over one 4 x 2048 prefill too: the device's busy share
+    and the hand-written kernel's share (K4 in decode, K5 in RWKV6's
+    prefill, K6 in Zamba2's) against the weight casts and the matmuls."""
     import torch
     from repro_torch.models.api import build_model
     steps = 8
@@ -1341,6 +1515,9 @@ def phase_engine_profile(gpt2_params):
             sync()
             if cfg.family == "ssm":
                 windows.append(("prefill", "k5", "wkv6_chunk_kernel",
+                                profile_window(prefill)))
+            elif cfg.family == "hybrid":
+                windows.append(("prefill", "k6", "ssd_chunk_kernel",
                                 profile_window(prefill)))
             windows.append(("decode", "k4", "decode_kernel",
                             profile_window(decode)))
@@ -1385,6 +1562,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     phase_build()
+    k6 = phase_k6()
     k5 = phase_k5()
     k4 = phase_k4()
     k1 = phase_k1()
@@ -1413,6 +1591,7 @@ def main() -> int:
     phase_generate_algorithms(cfg, params)
     k4_row = k4[("bfloat16", "gpt2-large")]
     k5_row = k5["full-width"]
+    k6_row = k6["full-width"]
 
     kern = [
         {"name": "tropical_route_kbest", "route": "cuda",
@@ -1456,6 +1635,13 @@ def main() -> int:
          "max_abs_err": k5_row["max_abs_err"], "ms": k5_row["ms"],
          "plain_ms": k5_row["plain_ms"], "bound_ms": k5_row["bound_ms"],
          "bound_by": k5_row["bound_by"], "library_ms": None},
+        {"name": "ssd_chunked", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_chunk.cu",
+         "replaces": "src/repro/kernels/ssd_chunk.py:62",
+         "launches": engine["zamba2-2.7b"]["launches"]["ssd_chunked"],
+         "max_abs_err": k6_row["max_abs_err"], "ms": k6_row["ms"],
+         "plain_ms": k6_row["plain_ms"], "bound_ms": k6_row["bound_ms"],
+         "bound_by": k6_row["bound_by"], "library_ms": None},
     ]
     log(f"end-to-end: {tps} tokens/s; total {time.perf_counter() - t_start}"
         " s; kernel rows: K1 at R=1, K2 at R=64 on the N=1000 scaling "
@@ -1464,6 +1650,8 @@ def main() -> int:
         "H=20, D=64, S=1120, kv_len 1/37/1056/1120; its launches: the "
         "engine runs), K5 at the RWKV6 engine's prefill shape (B=4, "
         "S=2048, H=32, K=64, model-like inputs; its launches: the RWKV6 "
+        "engine run), K6 at the Zamba2 engine's prefill shape (B=4, "
+        "S=2048, H=80, P=N=64, model-like inputs; its launches: the Zamba2 "
         "engine run)")
     log(card_line())
     log({"kernels": kern})

@@ -2,8 +2,10 @@
 
 Port of ``repro.configs``. The port serves the paper's own model,
 gpt2-large, and, through the KV-cache engine, tinyllama-1.1b (RoPE,
-RMSNorm, SwiGLU, GQA 32/4) and rwkv6-1.6b (attention-free, the WKV scan
-of kernel K5); the other architectures join with their model families.
+RMSNorm, SwiGLU, GQA 32/4), rwkv6-1.6b (attention-free, the WKV scan of
+kernel K5) and zamba2-2.7b (Mamba2 blocks with the SSD scan of kernel K6,
+and one shared attention block of head dim 80); the other architectures
+join with their model families.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     # attention-free RWKV6 "Finch": data-dependent decay, WKV scan (K5)
     "rwkv6-1.6b": "rwkv6_1_6b",
+    # hybrid: 54 Mamba2 blocks (SSD scan, K6) + a shared attention block
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)

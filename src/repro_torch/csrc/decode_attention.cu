@@ -130,7 +130,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int NI = G * D4;                      // float4 output items
-  const int nsplit = max(1, kThreads / NI);   // row split of the PV phase
+  // row split of the PV phase; any count works (at D = 80, G = 1: 20
+  // items x 6 splits, 120 of 128 threads), Red holds NI * nsplit <= kThreads
+  const int nsplit = max(1, kThreads / NI);
 
   for (int k0 = 0; k0 < n; k0 += kBK) {
     const int nv = min(kBK, n - k0);          // live rows of this tile
@@ -288,6 +290,7 @@ int launch_d(int D, const void* q, const void* k, const void* v,
     case 16: return launch<T, 16>(q, k, v, kv_len, out, B, S, Hq, Hkv, scale, stream);
     case 32: return launch<T, 32>(q, k, v, kv_len, out, B, S, Hq, Hkv, scale, stream);
     case 64: return launch<T, 64>(q, k, v, kv_len, out, B, S, Hq, Hkv, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, kv_len, out, B, S, Hq, Hkv, scale, stream);
     case 128: return launch<T, 128>(q, k, v, kv_len, out, B, S, Hq, Hkv, scale, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -303,7 +306,7 @@ const char* repro_cuda_error_string(int code) {
 
 // dtype: 0 = float32, 1 = bfloat16. q (B, Hq, D) and the caches
 // (B, S, Hkv, D) contiguous and 16-byte aligned; kv_len (B,) int32 on the
-// device. D in {16, 32, 64, 128}; Hq % Hkv == 0. Returns cudaGetLastError()
+// device. D in {16, 32, 64, 80, 128}; Hq % Hkv == 0. Returns cudaGetLastError()
 // (cudaErrorInvalidValue for arguments the kernel does not take, among them
 // a group Hq / Hkv too large for one block's shared memory).
 int decode_attention_launch(const void* q, const void* k, const void* v,

@@ -196,6 +196,7 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* out,
     case 16: return launch<T, 16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
     case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
     case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
+    case 80: return launch<T, 80>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
     case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -210,7 +211,7 @@ const char* repro_cuda_error_string(int code) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Tensors contiguous in (B, S, H, D).
-// D in {16, 32, 64, 128}; Hq % Hkv == 0. Returns cudaGetLastError().
+// D in {16, 32, 64, 80, 128}; Hq % Hkv == 0. Returns cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int Sq, int Sk, int Hq, int Hkv,
                            int D, int dtype, float scale, int causal,

@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels.build import CudaLibrary
 
 #: head dims the CUDA kernel is instantiated for
-CUDA_HEAD_DIMS = (16, 32, 64, 128)
+CUDA_HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB = CudaLibrary("flash_attention.cu", {

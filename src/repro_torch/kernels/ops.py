@@ -2,7 +2,8 @@
 
 Port of ``repro.kernels.ops`` for the kernels ported so far (K1
 ``tropical_route_kbest``, K2 ``tropical_route``, K3 ``flash_attention``,
-K4 ``decode_attention`` and K5 ``wkv6_chunked``). The rule is the tensor's
+K4 ``decode_attention``, K5 ``wkv6_chunked`` and K6 ``ssd_chunked``).
+The rule is the tensor's
 device, not a fallback: a CPU tensor goes to the kernel's plain PyTorch
 version (that is how the tests run without a GPU); a CUDA tensor launches
 the hand-written kernel, and a kernel that cannot take the input raises
@@ -19,6 +20,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.rwkv6_chunk import (wkv6_chunked_cuda,
                                              wkv6_chunked_plain)
+from repro_torch.kernels.ssd_chunk import ssd_chunked_cuda, ssd_chunked_plain
 from repro_torch.kernels.tropical_route import (tropical_route_cuda,
                                                 tropical_route_kbest_cuda,
                                                 tropical_route_kbest_plain,
@@ -31,6 +33,7 @@ CUDA_KERNELS = {
     "flash_attention": flash_attention_cuda,
     "decode_attention": decode_attention_cuda,
     "wkv6_chunked": wkv6_chunked_cuda,
+    "ssd_chunked": ssd_chunked_cuda,
 }
 
 
@@ -65,6 +68,16 @@ def wkv6(r, k, v, lw, u, state0):
     if _on_cpu(r):
         return wkv6_chunked_plain(r, k, v, lw, u, state0)
     return wkv6_chunked_cuda(r, k, v, lw, u, state0)
+
+
+def ssd(x, dt, la, Bm, Cm, h0):
+    """x (B,S,H,P) f32; dt, la (B,S,H); Bm, Cm (B,S,N); h0 (B,H,N,P) ->
+    (y, state). As for ``wkv6``, the port's plain version is the chunked
+    form, which the tests hold against the reference's token oracle and
+    its Pallas kernel."""
+    if _on_cpu(x):
+        return ssd_chunked_plain(x, dt, la, Bm, Cm, h0)
+    return ssd_chunked_cuda(x, dt, la, Bm, Cm, h0)
 
 
 def tropical_route(starts, ends, costs, *, total_layers: int, csr=None):

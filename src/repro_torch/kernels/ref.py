@@ -6,7 +6,8 @@ Port of ``repro.kernels.ref`` for the kernels ported so far:
 masked KV cache: K4's plain version under the oracle's name),
 ``tropical_route_ref`` (the single-best layered DP),
 ``tropical_route_kbest_ref`` (the K-best layered DP with one stable sort
-per boundary) and ``wkv6_ref`` (the RWKV6 recurrence token by token).
+per boundary), ``wkv6_ref`` (the RWKV6 recurrence token by token) and
+``ssd_ref`` (the Mamba2 SSD recurrence token by token).
 The tests hold them against the reference oracles, and the kernels and
 their plain versions against these.
 """
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.rwkv6_chunk import wkv6_step
+from repro_torch.kernels.ssd_chunk import ssd_step
 
 INF = 3.0e38
 
@@ -123,3 +125,21 @@ def wkv6_ref(r, k, v, lw, u, state0):
     if not ys:
         return torch.zeros_like(r), state
     return torch.stack(ys, dim=1), state
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD oracle (token-by-token recurrence)
+# ---------------------------------------------------------------------------
+
+
+def ssd_ref(x, dt, la, Bm, Cm, h0):
+    """Sequential SSD recurrence. x (B,S,H,P); dt, la (B,S,H); Bm, Cm
+    (B,S,N); h0 (B,H,N,P). Returns y (B,S,H,P), final state."""
+    h = h0
+    ys = []
+    for t in range(x.shape[1]):
+        y, h = ssd_step(x[:, t], dt[:, t], la[:, t], Bm[:, t], Cm[:, t], h)
+        ys.append(y)
+    if not ys:
+        return torch.zeros_like(x), h
+    return torch.stack(ys, dim=1), h

@@ -8,6 +8,8 @@ pipeline, on PyTorch.
         --arch tinyllama-1.1b
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
         --arch rwkv6-1.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
+        --arch zamba2-2.7b
 
 Port of ``repro.launch.serve``. ``--mode gtrac`` (the default): the
 window-batched router (``--windowed``, optionally ``--disaggregate``;
@@ -15,8 +17,10 @@ G-TRAC only) or per-token ``generate`` under any ``--algorithm``.
 ``--mode engine``: the plain KV-cache ``ServingEngine`` (with
 ``--attn-impl flash``, a dense model's prefill through kernel K3 and every
 decode step through kernel K4), which also serves RoPE models
-(tinyllama-1.1b) and RWKV6 (rwkv6-1.6b: every prefill's WKV scan through
-kernel K5, decode as plain recurrence). The pipeline server is dense-only,
+(tinyllama-1.1b), RWKV6 (rwkv6-1.6b: every prefill's WKV scan through
+kernel K5, decode as plain recurrence) and Zamba2 (zamba2-2.7b: every
+Mamba2 prefill's SSD scan through kernel K6, its shared attention block
+through K3 and K4 at head dim 80). The pipeline server is dense-only,
 as the reference's stage functions are. Runs on ``cuda`` unless
 ``--device cpu``. Weights are random, made from ``--seed`` with the
 family's ``init`` (the reference's distributions), so the tokens are
@@ -56,7 +60,7 @@ def main(argv=None):
                     help="torch device (default: cuda; raises without it)")
     ap.add_argument("--attn-impl", default="flash", choices=["xla", "flash"],
                     help="flash: the CUDA kernels (attention; RWKV6's "
-                         "WKV scan); xla: plain PyTorch")
+                         "WKV scan; Mamba2's SSD scan); xla: plain PyTorch")
     ap.add_argument("--algorithm", default="gtrac",
                     choices=["gtrac", "sp", "mr", "naive", "larac"])
     ap.add_argument("--tokens", type=int, default=16)

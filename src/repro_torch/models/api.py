@@ -10,30 +10,28 @@ port serves so far:
 
 The dense family (``dense``: GPT-2 Large, TinyLlama) is served by
 ``models/transformer.py``, the ``ssm`` family (RWKV6) by
-``models/rwkv6.py``. The other families raise ``NotImplementedError``
-naming the slice they wait for: ``moe`` and ``vlm`` (their model slices),
-``hybrid`` (Mamba2/Zamba2, with kernel K6) and ``audio`` (Whisper). The
-training hooks (``loss_fn``, the dry-run input specs) wait for the trainer
-slice.
+``models/rwkv6.py``, the ``hybrid`` family (Zamba2: Mamba2 blocks and a
+shared attention block) by ``models/zamba2.py``. The other families raise
+``NotImplementedError`` naming the slice they wait for: ``moe`` and
+``vlm`` (their model slices) and ``audio`` (Whisper). The training hooks
+(``loss_fn``, the dry-run input specs) wait for the trainer slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
 
-from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import rwkv6, transformer, zamba2
 
 #: family -> the slice of the port that brings it
 _WAITING = {
     "moe": "the MoE slice (models/moe.py: phi3.5-moe, qwen3-moe)",
     "vlm": "the vlm slice (M-RoPE, qwen2-vl)",
-    "hybrid": "the Mamba2/Zamba2 slice (kernel K6, ssd_chunked)",
     "audio": "the Whisper slice (models/whisper.py)",
 }
 
-_FAMILY_MODULES = {"dense": transformer, "ssm": rwkv6}
+_FAMILY_MODULES = {"dense": transformer, "ssm": rwkv6, "hybrid": zamba2}
 
 
 def _module(cfg: ModelConfig):
@@ -60,14 +58,11 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int, device=None):
     the caller passes another). Dense: k, v of (L, batch, capacity, Hkv, D)
     in the activation dtype and index 0. RWKV6: its zero recurrent state
     (``rwkv6.make_state``, independent of ``capacity``) and index 0, as the
-    reference."""
-    mod = _module(cfg)
-    device = resolve_device(device)
-    if mod is rwkv6:
-        state = rwkv6.make_state(cfg, batch, device)
-        state["index"] = 0
-        return state
-    return transformer.make_cache(cfg, batch, capacity, device=device)
+    reference (``rwkv6.make_cache``). Zamba2: k, v of (groups, batch,
+    capacity, Hkv, D), the conv tails and the f32 SSM states
+    (``zamba2.make_cache``) and index 0. Each family's ``make_cache``
+    resolves the device."""
+    return _module(cfg).make_cache(cfg, batch, capacity, device=device)
 
 
 def build_model(cfg: ModelConfig) -> Model:

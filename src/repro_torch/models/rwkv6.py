@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.rwkv6_chunk import (
@@ -208,6 +209,16 @@ def make_state(cfg: ModelConfig, batch: int, device) -> Params:
                                    device=device),
             "wkv": torch.zeros((L, batch, H, K, K), dtype=torch.float32,
                                device=device)}
+
+
+def make_cache(cfg: ModelConfig, batch: int, capacity: int,
+               device=None) -> Params:
+    """An empty serving cache on ``device`` (``cuda`` unless the caller
+    passes another): the zero recurrent state (``make_state``, independent
+    of ``capacity``) and index 0, as the reference."""
+    state = make_state(cfg, batch, resolve_device(device))
+    state["index"] = 0
+    return state
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens,

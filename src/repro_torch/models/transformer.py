@@ -48,8 +48,8 @@ def require_dense(cfg: ModelConfig, rope: bool = False) -> None:
             f"{cfg.name}: family {cfg.family!r} / pos_type "
             f"{cfg.pos_type!r} is not served here; the pipeline server "
             "serves dense models with learned positions (GPT-2), the "
-            "KV-cache engine (serve --mode engine) also RoPE (TinyLlama) "
-            "and RWKV6; MoE, vlm, hybrid and audio join the port with "
+            "KV-cache engine (serve --mode engine) also RoPE (TinyLlama), "
+            "RWKV6 and Zamba2; MoE, vlm and audio join the port with "
             "their model slices")
 
 
@@ -93,25 +93,36 @@ def _unstack(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _depth(tree: Any) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return int(np.asarray(tree).shape[0])
+
+
+#: the subtrees the reference stacks along a leading layer axis: the
+#: dense / RWKV6 ``layers`` and Zamba2's ``mamba`` blocks
+_STACKED = ("layers", "mamba")
+
+
 def params_from_jax(tree: Dict[str, Any], device=None) -> Params:
     """The reference's parameter pytree (leaves as numpy arrays) -> this
     package's parameter dict on ``device`` (``cuda`` unless the caller
-    passes another; ``resolve_device``). Serves every family whose tree
-    has this ``embed`` / ``layers`` / ``final_norm`` shape (the dense
-    transformer and RWKV6).
+    passes another; ``resolve_device``). Serves every family the port
+    serves: the dense transformer and RWKV6 (``embed`` / ``layers`` /
+    ``final_norm``) and Zamba2 (``embed`` / ``mamba`` / ``shared`` /
+    ``final_norm``).
 
-    ``tree["layers"]`` is stacked along a leading layer axis in the
-    reference; it becomes a list with one dict per layer. Every other leaf
-    keeps its shape, layout and dtype."""
-    layers = tree["layers"]
-    first = layers
-    while isinstance(first, dict):
-        first = next(iter(first.values()))
-    n = int(np.asarray(first).shape[0])
+    ``layers`` and ``mamba`` are stacked along a leading layer axis in the
+    reference; each becomes a list with one dict per layer. Every other
+    subtree (Zamba2's single ``shared`` block among them) and every leaf
+    keep their shape, layout and dtype."""
     device = resolve_device(device)
-    out = {k: _to_torch(v, device) for k, v in tree.items() if k != "layers"}
-    stacked = _to_torch(layers, device)
-    out["layers"] = [_unstack(stacked, i) for i in range(n)]
+    out = {}
+    for name, sub in tree.items():
+        sub_t = _to_torch(sub, device)
+        if name in _STACKED:
+            sub_t = [_unstack(sub_t, i) for i in range(_depth(sub))]
+        out[name] = sub_t
     return out
 
 

@@ -5,9 +5,11 @@ and shares ``AdmissionQueue`` for its window-batched routing loop).
 
 Port of ``repro.serving.engine``: ``Request``, ``_deprecated_submit`` and
 ``AdmissionQueue`` copied verbatim, and ``ServingEngine``, the KV-cache
-engine, whose every decode step runs kernel K4 (``decode_attention``) in
-each layer when ``cfg.attn_impl == "flash"`` and the prompt through kernel
-K3 (``flash_attention``) at prefill.
+engine, which serves any family ``models/api.build_model`` serves: with
+``cfg.attn_impl == "flash"`` a dense model's every decode step runs kernel
+K4 (``decode_attention``) in each layer and its prompt kernel K3
+(``flash_attention``); RWKV6's prompt runs K5, and Zamba2's runs K6 in
+each Mamba2 block and K3 / K4 in each shared-block application.
 
 Submission goes through the unified ``SubmitSpec`` surface
 (serving/api.py); the legacy ``submit(prompt, ...)`` keyword form is a

@@ -46,7 +46,9 @@ def cache_bytes(cfg: ModelConfig, batch: int, capacity: int) -> int:
     summed over the tensors of that cache built on the ``meta`` device
     (shapes and dtypes only, nothing allocated), as the reference sums
     its ``jax.eval_shape``. The layout is the model module's own: dense
-    K/V grow with ``capacity``, the RWKV6 state does not."""
+    K/V grow with ``capacity``, the RWKV6 state does not, and Zamba2's
+    cache is K/V per shared-block application (growing) plus conv tails
+    and SSM states per Mamba2 block (fixed)."""
     cache = make_cache(cfg, batch, capacity, device="meta")
     return sum(t.numel() * t.element_size() for t in cache.values()
                if isinstance(t, torch.Tensor)) + _INDEX_BYTES
@@ -55,8 +57,9 @@ def cache_bytes(cfg: ModelConfig, batch: int, capacity: int) -> int:
 def grow_cache(cache, new_capacity: int):
     """Grow the sequence axis of the 5-D KV tensors to ``new_capacity``
     (zero-padded; a new dict, the input is untouched). Shrinking is a
-    no-op, never a truncation; other entries, the RWKV6 state among them,
-    pass through."""
+    no-op, never a truncation; other entries pass through: the RWKV6
+    state, and Zamba2's conv tails and SSM states (``ssm`` is 5-D too, but
+    its third axis is heads, not positions)."""
     out = {}
     for name, leaf in cache.items():
         if name in ("k", "v", "sk", "sv") and isinstance(leaf, torch.Tensor) \

@@ -3,7 +3,8 @@
 The port's flash dispatch on CPU tensors runs the kernel's plain PyTorch
 version; it is held against the reference's Pallas ``flash_attention``
 (``blk_q = blk_k = 32``, interpret mode) and its ``attention_ref`` oracle at
-the shapes of ``tests/test_kernels.py``, causal and non-causal, with the
+the shapes of ``tests/test_kernels.py`` and at Zamba2's head dim 80,
+causal and non-causal, with the
 reference's own tolerances: 2e-4 absolute in f32, 2e-2 in bf16 (bf16 holds
 about 3 significant digits; outputs are O(1)). The same inputs, made with
 numpy from a seed, go to both sides. A ragged S = 200 (not a multiple of
@@ -36,6 +37,7 @@ SHAPES = [
     (1, 128, 8, 2, 64),
     (2, 96, 3, 1, 16),     # MQA, ragged heads
     (1, 256, 2, 2, 128),   # MHA, wide head
+    (2, 64, 4, 4, 80),     # Zamba2's shared block: head dim 80
 ]
 
 

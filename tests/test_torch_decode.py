@@ -6,7 +6,8 @@ The same inputs, made with numpy from a seed, go to both sides.
 * K4's plain version (what ``ops.decode_attention`` runs on CPU tensors)
   is held against the reference's Pallas ``decode_attention`` (``blk_k =
   32``, interpret mode) and its ``decode_attention_ref`` oracle at the
-  shapes of ``tests/test_kernels.py``, with the reference's tolerances:
+  shapes of ``tests/test_kernels.py`` and at Zamba2's head dim 80, with
+  the reference's tolerances:
   2e-4 absolute in f32, 2e-2 in bf16 (bf16 holds about 3 significant
   digits; outputs are O(1)). ``kv_len`` stays inside K4's contract,
   1 <= kv_len <= S, as the reference's test draws it. A ragged capacity
@@ -58,6 +59,7 @@ SHAPES = [
     (2, 64, 4, 2, 32),
     (3, 256, 8, 1, 64),
     (1, 128, 5, 5, 16),
+    (2, 96, 4, 4, 80),     # Zamba2's shared block: head dim 80
 ]
 
 REDUCED = {"gpt2-large": dict(num_layers=4, vocab_size=128, remat=False),

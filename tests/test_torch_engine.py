@@ -228,13 +228,20 @@ def test_build_model_serves_dense_and_names_the_rest():
     assert model.make_cache(2, 5, device="cpu")["k"].shape == \
         (2, 2, 5, 2, 32)
     for fam, slice_name in (("moe", "MoE"), ("vlm", "vlm"),
-                            ("hybrid", "Mamba2"), ("audio", "Whisper")):
+                            ("audio", "Whisper")):
         with pytest.raises(NotImplementedError, match=slice_name):
             tapi.build_model(dataclasses.replace(tcfg, family=fam))
-    # the ssm family (RWKV6) is served since its slice landed
+    # the ssm family (RWKV6) and the hybrid family (Zamba2) are served
+    # since their slices landed
     rwkv = tapi.build_model(tget_config("rwkv6-1.6b").reduced(vocab_size=64))
     assert set(rwkv.make_cache(2, 5, device="cpu")) == \
         {"tm_last", "cm_last", "wkv", "index"}
+    zamba = tapi.build_model(tget_config("zamba2-2.7b").reduced(vocab_size=64))
+    zp = zamba.init(torch.Generator().manual_seed(0), "cpu")
+    assert len(zp["mamba"]) == 2 and set(zp["shared"]) == \
+        {"attn", "mlp", "norm1", "norm2"}
+    assert set(zamba.make_cache(2, 5, device="cpu")) == \
+        {"k", "v", "conv", "ssm", "index"}
 
 
 def test_params_from_jax_carries_tinyllama():
