@@ -21,9 +21,11 @@ that a fault there shows before the long routing phases):
    absolute at Hq = Hkv = 20, D = 64, S in {8, 100, 128, 300, 1024}, plus
    GQA and non-causal shapes and the engine's prefill shapes (GPT-2 Large
    B = 4, S = 1024; TinyLlama B = 4, S = 2048, Hq = 32, Hkv = 4; Zamba2's
-   shared block B = 4, S = 2048, Hq = Hkv = 32, D = 80, timed). Each
-   kernel is timed beside its plain version and its bound (and K3 beside
-   ``scaled_dot_product_attention``, a yardstick the port never calls).
+   shared block B = 4, S = 2048, Hq = Hkv = 32, D = 80; each timed per
+   call and on the device). Each kernel is timed beside its plain version
+   and its bound (and K3 beside ``scaled_dot_product_attention``, a
+   yardstick the port never calls). K3's bf16 rows time the tensor-core
+   kernel, its f32 rows the FP32 one.
 3. main path — full-width GPT-2 Large (36 layers, d_model 1280, vocab
    50257, random weights from a seed) served through
    ``GTRACPipelineServer.submit`` + ``run_queue`` with ``attn_impl="flash"``,
@@ -63,7 +65,10 @@ that a fault there shows before the long routing phases):
    (B = 4, Hq = Hkv = 32, D = 80, S = 2144, kv_len 2080), a ragged
    S = 1000 and small shapes; each timed beside its plain version, its
    bound and ``scaled_dot_product_attention`` with a live mask (a
-   yardstick the port never calls).
+   yardstick the port never calls), per call and on the device (the split
+   and the combine kernel together), with its split plan; the four
+   engine shapes again with kv_len = 1, on the first split boundary, = S
+   and in the middle (``*-splits`` rows).
 11. KV-cache engine — ``ServingEngine.run_batch`` at full width, bf16,
    ``attn_impl="flash"``: zamba2-2.7b (54 Mamba2 blocks and 9 applications
    of its shared block, 2,396,455,840 parameters, random weights from the
@@ -87,10 +92,10 @@ that a fault there shows before the long routing phases):
    full-width Zamba2 (prompts of 8 and 100 tokens), 8 new tokens: the
    greedy tokens must be identical (else the top-2 logit margin at the
    first differing step is printed and the run fails).
-13. engine profile — ``torch.profiler`` over decode steps of each model
-   (and over one 4 x 2048 prefill of RWKV6 and of Zamba2): the device's
-   busy share and K4's (K5's, K6's) device time against the weight casts
-   and the matmuls.
+13. engine profile — ``torch.profiler`` over one prefill of each model's
+   longest prompts (4 x 2048; GPT-2 Large 4 x 1024) and over 8 decode
+   steps after it: the device's busy share and K3's, K4's, K5's and K6's
+   device time against the weight casts and the matmuls.
 14. K5 — ``wkv6_chunked`` against its plain version on the card: the
    engine's prefill shape (B = 4, S = 2048, H = 32, K = 64) on model-like
    inputs within 1e-4 x max|plain|, and within 5e-4 absolute on the
@@ -182,11 +187,23 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20):
-    """Device-only time per launch of the kernel whose profiler name
-    contains ``kernel`` (e.g. ``"route_kernel("``) over ``iters`` calls of
-    ``fn``, from ``torch.profiler``; None when the profiler records no
-    device activity."""
+def name_matches(key: str, kernel) -> bool:
+    """Whether a profiler kernel name contains ``kernel`` (a substring, or
+    any of a tuple of them); None matches every name."""
+    if kernel is None:
+        return True
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    return any(n in key for n in names)
+
+
+def device_ms(fn, kernel, iters: int = 20):
+    """Device-only time per call of ``fn``: the summed device time of every
+    kernel whose profiler name matches ``kernel`` (a substring such as
+    ``"route_kernel("``, or a tuple of them, so that a wrapper's split and
+    combine kernels count together; None for every kernel ``fn`` runs, as
+    for a library call) over ``iters`` calls, divided by ``iters``, from
+    ``torch.profiler``; None when the profiler records no matching device
+    activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -197,13 +214,15 @@ def device_ms(fn, kernel: str, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    total, found = 0.0, False
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and kernel in e.key:
+        if e.device_type == DeviceType.CUDA and name_matches(e.key, kernel):
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = getattr(e, "self_cuda_time_total", 0)
-            return t / 1e3 / e.count
-    return None
+            total += t
+            found = True
+    return total / 1e3 / iters if found else None
 
 
 def wall_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -441,6 +460,17 @@ def k3_bound_ms(B, S, Hq, Hkv, D, dtype, causal) -> tuple:
             "operations")
 
 
+#: profiler names of K3's kernels, by input type
+K3_KERNELS = {"bfloat16": "flash_bf16_mma_kernel<",
+              "float32": "flash_f32_kernel<"}
+#: K3's timed engine shapes (B, S, Hq, Hkv, D), causal
+K3_ENGINE_SHAPES = {(4, 1024, 20, 20, 64): "gpt2-large",
+                    (4, 2048, 32, 4, 64): "tinyllama-1.1b",
+                    (4, 2048, 32, 32, 80): "zamba2-2.7b"}
+#: profiler names of K4's split and combine kernels
+K4_KERNELS = ("decode_split_kernel<", "decode_combine_kernel<")
+
+
 def phase_k3():
     import torch
     import torch.nn.functional as F
@@ -472,27 +502,34 @@ def phase_k3():
                 raise AssertionError(
                     f"K3 {name} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
                     f"causal={causal}: max abs err {err} > {tol[dtype]}")
+            # the largest |o| sets the bf16 step the error is read against
             row = {"dtype": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv,
-                   "D": D, "causal": causal, "max_abs_err": err}
-            if (B == 1 and Hq == Hkv == 20 and D == 64) or \
-                    (S == 2048 and D == 80):
+                   "D": D, "causal": causal, "max_abs_err": err,
+                   "max_abs_out": float(want.float().abs().max())}
+            engine = K3_ENGINE_SHAPES.get((B, S, Hq, Hkv, D)) \
+                if causal else None
+            if (B == 1 and Hq == Hkv == 20 and D == 64) or engine:
                 qt, kt, vt = (t.transpose(1, 2).contiguous()
                               for t in (q, k, v))
                 row["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(
                     q, k, v, causal=causal), iters=50)
                 row["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
                     q, k, v, causal=causal), iters=20)
-                row["library_ms"] = cuda_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal), iters=50)
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv)
+                row["library_ms"] = cuda_ms(sdpa, iters=50)
                 row["bound_ms"], row["bound_by"] = k3_bound_ms(
                     B, S, Hq, Hkv, D, dtype, causal)
-                if D == 80:
+                if engine:
+                    row["shape"] = engine
                     row["device_ms_per_launch"] = device_ms(
                         lambda: fa.flash_attention_cuda(
-                            q, k, v, causal=causal), "flash_kernel<",
+                            q, k, v, causal=causal), K3_KERNELS[name],
                         iters=5)
-                    rows[(name, "zamba2-2.7b")] = row
+                    row["library_device_ms"] = device_ms(sdpa, None,
+                                                         iters=5)
+                    rows[(name, engine)] = row
                 else:
                     rows[(name, S)] = row
             log({"k3": row})
@@ -660,8 +697,8 @@ def phase_profile(cfg, params):
     busy = sum(t for t, _ in kernels.values())
     ours = {k[:40]: {"device_ms_per_launch": t / n, "launches": n}
             for k, (t, n) in kernels.items()
-            if "route_kbest_kernel" in k or "route_kernel(" in k
-            or "flash_kernel" in k}
+            if name_matches(k, ("route_kbest_kernel", "route_kernel(",
+                                *K3_KERNELS.values()))}
     log({"profile": {
         "wall_s": wall, "tokens": sum(r.metrics.tokens for r in done),
         "device_busy_ms": busy, "device_busy_share": busy / (wall * 1e3),
@@ -908,8 +945,8 @@ def k4_bound_ms(B, Hq, Hkv, D, kv_len, dtype) -> tuple:
 
 def phase_k4():
     """K4 against its plain version at the engine's decode shapes, a ragged
-    capacity and small shapes; timed beside its plain version, its bound,
-    SDPA with a live mask, and its device-only time per launch."""
+    capacity and small shapes; timed beside its plain version, its bound
+    and SDPA with a live mask, per call and on the device."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
@@ -925,6 +962,13 @@ def phase_k4():
               ("small-gqa", 2, 64, 4, 2, 32, (1, 64), False),
               ("small-mha", 1, 128, 5, 5, 16, (77,), False),
               ("small-mqa", 2, 200, 8, 1, 64, (200, 3), False)]
+    # the engine shapes again with kv_len = 1 (every split past the first
+    # empty), on the first split boundary, = S and in the middle
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, B, S, Hq, Hkv, D, _, _ in shapes[:4]:
+        _, bound = da.split_plan(S, B, Hkv, sms)
+        shapes.append((name + "-splits", B, S, Hq, Hkv, D,
+                       (1, bound, S, S // 2 + 3)[:B], False))
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         name_t = str(dtype).replace("torch.", "")
@@ -960,13 +1004,17 @@ def phase_k4():
                     q, k, v, kv_len), iters=200)
                 row["device_ms_per_launch"] = device_ms(
                     lambda: da.decode_attention_cuda(q, k, v, kv_len),
-                    "decode_kernel<")
+                    K4_KERNELS)
                 row["plain_ms"] = cuda_ms(lambda: da.decode_attention_plain(
                     q, k, v, kv_len), iters=20)
                 row["library_ms"] = cuda_ms(sdpa, iters=100)
+                # every kernel of the SDPA call, mask handling included
+                row["library_device_ms"] = device_ms(sdpa, None)
                 row["bound_ms"], row["bound_by"] = k4_bound_ms(
                     B, Hq, Hkv, D, lens, dtype)
-                row["ctas"] = B * Hkv
+                splits, _ = da.split_plan(S, B, Hkv, sms)
+                row["splits"] = splits
+                row["ctas"] = splits * Hkv * B
                 rows[(name_t, name)] = row
             log({"k4": row})
     return rows
@@ -1460,17 +1508,22 @@ def profile_window(fn):
     return wall, kernels, ops_ms
 
 
-def profile_summary(wall, kernels, ops_ms, kernel_name: str, tag: str):
-    """The device's busy share, the hand-written kernel's device time
-    (kernels whose name contains ``kernel_name``) against the weight casts
-    (``aten::copy_``) and the matmuls (``aten::mm``), and the top items."""
+def profile_summary(wall, kernels, ops_ms, hand):
+    """The device's busy share, each hand-written kernel's device time
+    (``hand``: [(tag, profiler names)], the kernels whose names match)
+    against the weight casts (``aten::copy_``) and the matmuls
+    (``aten::mm``), and the top items."""
     busy = sum(t for t, _ in kernels.values())
-    mine = [(t, n) for k, (t, n) in kernels.items() if kernel_name in k]
-    mine_ms = sum(t for t, _ in mine)
-    return {"wall_s": wall, "device_busy_ms": busy,
-            "device_busy_share": busy / (wall * 1e3),
-            f"{tag}_ms": mine_ms, f"{tag}_launches": sum(n for _, n in mine),
-            f"{tag}_share_of_busy": mine_ms / busy,
+    out = {"wall_s": wall, "device_busy_ms": busy,
+           "device_busy_share": busy / (wall * 1e3)}
+    for tag, names in hand:
+        mine = [(t, n) for k, (t, n) in kernels.items()
+                if name_matches(k, names)]
+        mine_ms = sum(t for t, _ in mine)
+        out.update({f"{tag}_ms": mine_ms,
+                    f"{tag}_kernel_launches": sum(n for _, n in mine),
+                    f"{tag}_share_of_busy": mine_ms / busy})
+    return {**out,
             "copy_ms": ops_ms.get("aten::copy_", (0.0, 0))[0],
             "mm_ms": ops_ms.get("aten::mm", (0.0, 0))[0],
             "top_ops_ms_calls": [[k[:60], t, n] for k, (t, n) in sorted(
@@ -1480,11 +1533,12 @@ def profile_summary(wall, kernels, ops_ms, kernel_name: str, tag: str):
 
 
 def phase_engine_profile(gpt2_params):
-    """Device time by kernel over decode steps of each engine model
-    (batch 4, state filled by a prefill outside the profile), and for
-    RWKV6 and Zamba2 over one 4 x 2048 prefill too: the device's busy share
-    and the hand-written kernel's share (K4 in decode, K5 in RWKV6's
-    prefill, K6 in Zamba2's) against the weight casts and the matmuls."""
+    """Device time by kernel over one prefill of each engine model's
+    longest prompts (batch 4) and over decode steps after it: the device's
+    busy share and the hand-written kernels' shares (K3 in the attention
+    prefills, K5 in RWKV6's, K6 and K3 in Zamba2's, K4 in decode: its
+    split and combine kernels together, ``k4_kernel_launches`` counting
+    both) against the weight casts and the matmuls."""
     import torch
     from repro_torch.models.api import build_model
     steps = 8
@@ -1513,15 +1567,17 @@ def phase_engine_profile(gpt2_params):
             cur = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
             model.decode_step(params, cur, state["cache"])      # warm
             sync()
+            k3 = ("k3", tuple(K3_KERNELS.values()))
             if cfg.family == "ssm":
-                windows.append(("prefill", "k5", "wkv6_chunk_kernel",
-                                profile_window(prefill)))
+                hand = [("k5", "wkv6_chunk_kernel")]
             elif cfg.family == "hybrid":
-                windows.append(("prefill", "k6", "ssd_chunk_kernel",
-                                profile_window(prefill)))
-            windows.append(("decode", "k4", "decode_kernel",
-                            profile_window(decode)))
-        for window, tag, kname, (wall, kernels, ops_ms) in windows:
+                hand = [("k6", "ssd_chunk_kernel"), k3]
+            else:
+                hand = [k3]
+            windows.append(("prefill", hand, profile_window(prefill)))
+            windows.append(("decode", [] if cfg.family == "ssm" else
+                            [("k4", K4_KERNELS)], profile_window(decode)))
+        for window, hand, (wall, kernels, ops_ms) in windows:
             head = {"arch": arch, "window": window, "batch": 4,
                     "prompt": S}
             if window == "decode":
@@ -1531,7 +1587,7 @@ def phase_engine_profile(gpt2_params):
                                         "(no device activity recorded)"}})
                 continue
             log({"engine_profile": {**head, **profile_summary(
-                wall, kernels, ops_ms, kname, tag)}})
+                wall, kernels, ops_ms, hand)}})
         del params, state
 
 

@@ -10,11 +10,13 @@ Two versions of the same function live here:
 
 * ``decode_attention_plain`` — plain PyTorch on any device: the full
   softmax in f32 over grouped (never repeated) KV heads.
-* ``decode_attention_cuda`` — the hand-written CUDA kernel
-  (``csrc/decode_attention.cu``): one block per (KV head, batch row) that
-  serves all of the head's query heads, an online softmax over 128-row
-  tiles, and only the live rows read. Unlike the TPU kernel it takes any
-  capacity S (the TPU kernel asserts S % blk_k == 0).
+* ``decode_attention_cuda`` — the hand-written CUDA kernels
+  (``csrc/decode_attention.cu``), flash-decoding: the cache rows of each
+  (KV head, batch row) are split across blocks by ``split_plan``, each
+  block serving all of the head's query heads with an online softmax over
+  its 128-row tiles, only the live rows read; a second kernel combines the
+  blocks' partial (m, l, acc). Unlike the TPU kernel it takes any capacity
+  S (the TPU kernel asserts S % blk_k == 0).
 
 ``kernels.ops.decode_attention`` picks between them by the device of the
 tensors it is given.
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -39,11 +42,37 @@ from repro_torch.kernels.build import CudaLibrary
 #: head dims the CUDA kernel is instantiated for
 CUDA_HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: cache rows per tile of the CUDA kernel; a split is a whole number of tiles
+TILE_ROWS = 128
+#: the split plan aims at this many blocks per SM over the grid where S
+#: allows (in waves: an SM holds up to 4 at the engine's shapes); on the
+#: H100, 8 timed faster than 2 or 4 at GPT-2 Large's decode shape and
+#: about as fast at Zamba2's
+BLOCKS_PER_SM = 8
 
 _LIB = CudaLibrary("decode_attention.cu", {
-    "decode_attention_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_void_p],
+    "decode_attention_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 })
+
+
+def split_plan(S: int, B: int, Hkv: int, num_sms: int) -> Tuple[int, int]:
+    """How the CUDA kernel splits a capacity of ``S`` cache rows across
+    blocks: ``(splits, rows_per_split)``. Split i covers rows
+    ``[i * rows_per_split, min((i + 1) * rows_per_split, S))``; together
+    they cover [0, S) once, each is a whole number of ``TILE_ROWS`` rows
+    (but the last, which ends at S), and none is empty. The plan aims at
+    ``BLOCKS_PER_SM`` blocks per SM over the (splits, Hkv, B) grid and
+    takes one split when the B * Hkv blocks already reach it or S fits one
+    tile. It depends on the capacity, never on ``kv_len``, so the host
+    never waits for the device to plan."""
+    if S < 1 or B < 1 or Hkv < 1:
+        raise ValueError(f"split_plan: S={S}, B={B}, Hkv={Hkv} must be >= 1")
+    tiles = -(-S // TILE_ROWS)
+    want = -(-BLOCKS_PER_SM * num_sms // (B * Hkv))
+    splits = max(1, min(tiles, want))
+    per = -(-tiles // splits)            # tiles per split
+    return -(-tiles // per), per * TILE_ROWS
 
 
 def decode_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
@@ -77,8 +106,10 @@ def decode_attention_cuda(q: torch.Tensor, cache_k: torch.Tensor,
     contiguous int32 on the same device, read by the kernel (never synced to
     the host). Head dim in ``CUDA_HEAD_DIMS``, Hq a multiple of Hkv. Raises
     on anything else, and never copies: a strided cache slice is refused,
-    not silently made contiguous. ``launches`` counts the kernel launches
-    this wrapper made."""
+    not silently made contiguous. Each call launches the split kernel on a
+    (splits, Hkv, B) grid (``split_plan``) and the combine kernel, with
+    the partials in scratch from ``torch.empty``; ``launches`` counts the
+    wrapper calls that launched them."""
     if q.dim() != 3 or cache_k.dim() != 4 or cache_v.dim() != 4:
         raise ValueError("decode_attention_cuda: q must be (B, Hq, D) and "
                          "the caches (B, S, Hkv, D)")
@@ -119,13 +150,18 @@ def decode_attention_cuda(q: torch.Tensor, cache_k: torch.Tensor,
         return out
     if S == 0:
         raise ValueError("decode_attention_cuda: the cache has no rows")
+    splits, rows = split_plan(S, B, Hkv, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    part = torch.empty(splits * B * Hq * (D + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _LIB.get()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_launch(
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D,
-            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(D), stream)
+            kv_len.data_ptr(), out.data_ptr(), part.data_ptr(), B, S, Hq,
+            Hkv, D, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(D), splits, rows,
+            stream)
     _LIB.check(err, "decode_attention launch")
     decode_attention_cuda.launches += 1
     return out

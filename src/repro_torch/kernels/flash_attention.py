@@ -9,10 +9,13 @@ Two versions of the same function live here:
 
 * ``flash_attention_plain`` — plain PyTorch on any device: the full
   softmax in f32 over grouped (never repeated) KV heads.
-* ``flash_attention_cuda`` — the hand-written CUDA kernel
+* ``flash_attention_cuda`` — the hand-written CUDA kernels
   (``csrc/flash_attention.cu``): online softmax over 64-key tiles, one
-  block per (64-query tile, head, batch). Unlike the TPU kernel it takes
-  any sequence length: the ragged tail is masked inside the kernel.
+  block per (64-query tile, head, batch). bf16 runs on the tensor cores
+  (``mma.sync`` with f32 accumulation, K/V tiles staged by ``cp.async``,
+  P rounded to bf16 for PV); f32 runs on FP32 FMAs. Unlike the TPU kernel
+  it takes any sequence length: the ragged tail is masked inside the
+  kernel.
 
 ``kernels.ops.flash_attention`` picks between them by the device of the
 tensors it is given.
@@ -61,9 +64,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """The CUDA kernel on CUDA tensors; same contract as the plain version.
 
-    q, k, v contiguous, one dtype (float32 or bfloat16), one CUDA device,
-    head dim in ``CUDA_HEAD_DIMS``, Hq a multiple of Hkv. Raises on anything
-    else. ``launches`` counts the kernel launches this wrapper made."""
+    q, k, v contiguous and 16-byte aligned, one dtype (float32 or
+    bfloat16), one CUDA device, head dim in ``CUDA_HEAD_DIMS``, Hq a
+    multiple of Hkv. Raises on anything else. ``launches`` counts the
+    kernel launches this wrapper made."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention_cuda: q, k, v must be 4-D "
                          "(B, S, H, D)")
@@ -86,9 +90,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention_cuda: {name} must be on the "
                              f"CUDA device of q, got {t.device}")
-        if t.dtype != q.dtype or not t.is_contiguous():
+        if t.dtype != q.dtype or not t.is_contiguous() or \
+                t.data_ptr() % 16:
             raise ValueError(f"flash_attention_cuda: {name} must be a "
-                             f"contiguous {q.dtype} tensor")
+                             f"contiguous, 16-byte aligned {q.dtype} tensor")
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out

@@ -14,7 +14,9 @@ Backends: ``kernel`` runs the DP through ``kernels.ops`` — the CUDA
 plain version on the CPU; ``torch`` forces the plain PyTorch
 ``routing_torch.layered_dp_kbest`` on the router's device; ``numpy`` runs
 the vectorized host DP (``RoutePlanner.solve_kbest_batched``). ``auto``
-resolves to ``kernel`` on a CUDA device and to ``torch`` on the CPU. All
+resolves to ``kernel`` on a CUDA device and to ``numpy`` elsewhere, as
+the reference's ``auto`` picks its Pallas kernel on a TPU and numpy
+elsewhere. All
 carry the same top-K (dist, pred, rank) state with the same stable
 (value, edge, rank) tie-break and share ``_edge_disjoint_order``, so plans
 are bit-identical regardless of which backend routed the window —
@@ -54,7 +56,7 @@ def _resolve_backend(backend: str, device) -> str:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     if backend == "auto":
         dev = resolve_device() if device is None else torch.device(device)
-        return "kernel" if dev.type == "cuda" else "torch"
+        return "kernel" if dev.type == "cuda" else "numpy"
     return backend
 
 

@@ -11,7 +11,17 @@ numpy from a seed, go to both sides. A ragged S = 200 (not a multiple of
 any block; the Pallas kernel cannot take it) is checked against
 ``attention_ref`` only. The CUDA kernel runs only on an H100 (the last
 test; skipped elsewhere).
+
+The CUDA kernel's bf16 path runs on the tensor cores and rounds once more
+than the plain version: each softmax weight p is rounded to bf16 before
+PV. A test-local emulation of that arithmetic (exact bf16 q.k products
+summed in f32, the scale applied to the f32 scores, an online softmax in
+base 2 over 64-key tiles, P rounded to bf16, f32 PV) is held against the
+Pallas kernel and the oracle within the same 2e-2, at head dims 64 and
+80, G = 1 and 8, causal and not, ragged S and S up to 512.
 """
+import math
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -123,6 +133,98 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         tfa.flash_attention_cuda(tq, tk, tv)
 
 
+LOG2E = 1.4426950408889634
+
+
+def _tensor_core_emulation(q, k, v, *, causal=True, tile=64):
+    """K3's bf16 arithmetic on the tensor cores, in torch: q, k, v bf16
+    (B, S, H, D) -> bf16. Scores are f32 sums of the exact bf16 products,
+    scaled after the product by log2(e)/sqrt(D) in f32; an online softmax
+    in base 2 over ``tile``-key tiles with the kernel's m == -inf guard; l
+    sums the f32 p, PV takes p rounded to bf16; acc / max(l, 1e-30)."""
+    B, S, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale_log2 = float(torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+                       * torch.tensor(LOG2E, dtype=torch.float32))
+    qg = q.float().reshape(B, S, Hkv, G, D)
+    kf, vf = k.float(), v.float()
+    m = torch.full((B, Hkv, G, S), float("-inf"))
+    l = torch.zeros((B, Hkv, G, S))
+    acc = torch.zeros((B, Hkv, G, S, D))
+    rows = torch.arange(S)
+    for k0 in range(0, Sk, tile):
+        kt, vt = kf[:, k0:k0 + tile], vf[:, k0:k0 + tile]
+        x = torch.einsum("bqhgd,bkhd->bhgqk", qg, kt) * scale_log2
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[1])
+            x = x.masked_fill(keys[None, :] > rows[:, None], float("-inf"))
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.where(m == float("-inf"), torch.zeros(()),
+                            torch.exp2(m - m_new))
+        base = torch.where(m_new == float("-inf"), torch.zeros(()), m_new)
+        p = torch.exp2(x - base[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    o = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(torch.bfloat16)
+
+
+#: (B, S, Hq, Hkv, D): G = 1 and 8 at head dims 64 and 80, S up to 512
+MMA_SHAPES = [
+    (1, 128, 8, 8, 64),
+    (1, 128, 8, 1, 64),
+    (1, 256, 8, 8, 80),
+    (1, 256, 8, 1, 80),
+    (1, 512, 2, 2, 80),
+    (1, 512, 8, 1, 64),
+]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", MMA_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_arithmetic_matches_pallas_and_oracle(B, S, Hq, Hkv, D,
+                                                          causal):
+    """The bf16 kernel's extra rounding (P to bf16 before PV) stays inside
+    the bf16 tolerance of the Pallas kernel, the oracle and the plain
+    version."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B, S, Hq, Hkv, D, "bfloat16",
+                                         seed=4)
+    got = _tensor_core_emulation(tq, tk, tv, causal=causal)
+    assert torch.isfinite(got.float()).all()
+    pallas = jflash(jq, jk, jv, causal=causal, blk_q=128, blk_k=128,
+                    interpret=True)
+    oracle = jref.attention_ref(jq, jk, jv, causal=causal)
+    tol = TOL["bfloat16"]
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=tol)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=tol)
+    np.testing.assert_allclose(
+        _np(got), _np(tfa.flash_attention_plain(tq, tk, tv, causal=causal)),
+        atol=tol)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [(2, 200, 8, 1, 80),
+                                          (1, 100, 8, 8, 64),
+                                          (1, 77, 8, 1, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_arithmetic_ragged_length(B, S, Hq, Hkv, D, causal):
+    """Ragged S (a partial last tile, which the Pallas kernel cannot
+    take): the emulation against the oracle."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B, S, Hq, Hkv, D, "bfloat16",
+                                         seed=5)
+    got = _tensor_core_emulation(tq, tk, tv, causal=causal)
+    oracle = jref.attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=TOL["bfloat16"])
+
+
+#: the engine's prefill shapes: GPT-2 Large 4 x 1024, TinyLlama 4 x 2048 at
+#: G = 8, Zamba2's shared block 4 x 2048 at D = 80
+ENGINE_PREFILL_SHAPES = [(4, 1024, 20, 20, 64), (4, 2048, 32, 4, 64),
+                         (4, 2048, 32, 32, 80)]
+
+
 @pytest.mark.h100
 def test_kernel_matches_plain_on_h100():
     """The CUDA kernel against its plain version (H100 only)."""
@@ -130,7 +232,8 @@ def test_kernel_matches_plain_on_h100():
             torch.cuda.get_device_capability() != (9, 0):
         pytest.skip("needs an sm_90 GPU (H100): the CUDA kernel has no "
                     "CPU mode")
-    for B, S, Hq, Hkv, D in SHAPES + [(1, 200, 20, 20, 64)]:
+    for B, S, Hq, Hkv, D in SHAPES + MMA_SHAPES + ENGINE_PREFILL_SHAPES + [
+            (1, 200, 20, 20, 64), (2, 200, 8, 1, 80), (1, 77, 8, 1, 64)]:
         for dtype in ("float32", "bfloat16"):
             _, tx = _inputs(B, S, Hq, Hkv, D, dtype)
             q, k, v = (t.cuda() for t in tx)

@@ -25,8 +25,17 @@ The same inputs, made with numpy from a seed, go to both sides.
 
 The CUDA kernel runs only on an H100 (the ``h100`` test; skipped
 elsewhere); ``chip_smoke.py`` runs the same check at the engine's shapes.
+
+The CUDA kernel splits the cache rows across blocks (flash-decoding) by
+``split_plan`` and combines the blocks' partial (m, l, acc). The plan is
+checked here (every row in exactly one split, whole 128-row tiles, one
+split at small S), and a test-local torch emulation of the split and
+combine arithmetic over the plan's ranges is held against the Pallas
+kernel and the oracle within 2e-4 (f32) / 2e-2 (bf16), with empty splits,
+kv_len = 1, kv_len on a split boundary and kv_len = S.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -136,10 +145,142 @@ def test_decode_attention_registered_for_launch_counts():
     assert "decode_attention" in ops.launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# K4's split plan and its split-and-combine arithmetic
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("S", [1, 77, 128, 129, 300, 1000, 1120, 2144, 4096,
+                               32768])
+@pytest.mark.parametrize("B,Hkv", [(1, 1), (4, 1), (4, 4), (3, 2), (4, 20),
+                                   (4, 32), (8, 64)])
+@pytest.mark.parametrize("num_sms", [132, 8])
+def test_split_plan_covers_rows_once_in_whole_tiles(S, B, Hkv, num_sms):
+    splits, rows = tda.split_plan(S, B, Hkv, num_sms)
+    tiles = -(-S // tda.TILE_ROWS)
+    assert rows % tda.TILE_ROWS == 0 and 1 <= splits <= tiles
+    covered = np.zeros(S, np.int64)
+    for i in range(splits):
+        lo, hi = i * rows, min((i + 1) * rows, S)
+        assert lo < hi                                # no empty split
+        covered[lo:hi] += 1
+    assert (covered == 1).all()                       # each row once
+    want = -(-tda.BLOCKS_PER_SM * num_sms // (B * Hkv))   # splits wanted
+    if tiles == 1 or want == 1:
+        assert splits == 1
+    else:            # splits as short as they can be without passing want
+        per = rows // tda.TILE_ROWS
+        assert splits <= want
+        assert per == 1 or -(-tiles // (per - 1)) > want
+
+
+def test_split_plan_at_the_engine_shapes():
+    """GPT-2 Large, TinyLlama and Zamba2 decode at B = 4 split as far as
+    the plan's blocks per SM or their tiles allow; small capacities take
+    one split."""
+    # (splits, rows per split): 720, 272 and 1152 blocks on the H100's
+    # 132 SMs
+    sms = 132
+    assert tda.split_plan(1120, 4, 20, sms) == (9, 128)
+    assert tda.split_plan(2144, 4, 4, sms) == (17, 128)
+    assert tda.split_plan(2144, 4, 32, sms) == (9, 256)
+    assert tda.split_plan(104, 4, 20, sms) == (1, 128)
+    assert tda.split_plan(128, 1, 1, sms) == (1, 128)
+    with pytest.raises(ValueError):
+        tda.split_plan(0, 4, 4, sms)
+
+
+def _split_emulation(q, cache_k, cache_v, kv_len, num_sms=132):
+    """K4's arithmetic on the card, in torch: per split of ``split_plan``,
+    an online softmax over the split's live rows in 128-row tiles (q
+    scaled by 1/sqrt(D) in f32 first), a partial (m, l, acc) per split
+    (m = -inf, l = 0, acc = 0 for a split with no live row), then the
+    combine: weights exp(m_i - M), acc / max(l, 1e-30) in q's dtype."""
+    B, Hq, D = q.shape
+    S, Hkv = cache_k.shape[1], cache_k.shape[2]
+    G = Hq // Hkv
+    splits, rows = tda.split_plan(S, B, Hkv, num_sms)
+    qg = q.float().reshape(B, Hkv, G, D) * (1.0 / math.sqrt(D))
+    kf, vf = cache_k.float(), cache_v.float()
+    pm = torch.full((splits, B, Hkv, G), float("-inf"))
+    pl = torch.zeros((splits, B, Hkv, G))
+    pa = torch.zeros((splits, B, Hkv, G, D))
+    for b in range(B):
+        n = min(max(int(kv_len[b]), 0), S)
+        for i in range(splits):
+            r0, r1 = i * rows, min((i + 1) * rows, n)
+            if r0 >= r1:
+                continue                      # empty: m = -inf, l = 0
+            m = torch.full((Hkv, G), float("-inf"))
+            l = torch.zeros((Hkv, G))
+            acc = torch.zeros((Hkv, G, D))
+            for k0 in range(r0, r1, tda.TILE_ROWS):
+                k1 = min(k0 + tda.TILE_ROWS, r1)
+                sc = torch.einsum("hgd,khd->hgk", qg[b], kf[b, k0:k1])
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha = torch.where(m == float("-inf"), torch.zeros(()),
+                                    torch.exp(m - m_new))
+                p = torch.exp(sc - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "hgk,khd->hgd", p, vf[b, k0:k1])
+                m = m_new
+            pm[i, b], pl[i, b], pa[i, b] = m, l, acc
+    M = pm.amax(0)
+    live = pm != float("-inf")
+    w = torch.where(live, torch.exp(pm - torch.where(
+        M == float("-inf"), torch.zeros(()), M)), torch.zeros(()))
+    L = (pl * w).sum(0)
+    O = (pa * w[..., None]).sum(0)
+    out = torch.where((M == float("-inf"))[..., None], torch.zeros(()),
+                      O / torch.clamp_min(L, 1e-30)[..., None])
+    return out.reshape(B, Hq, D).to(q.dtype), splits
+
+
+@pytest.mark.parametrize("S,num_sms", [(512, 132), (1024, 2), (1024, 132)])
+@pytest.mark.parametrize("D", [64, 80])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_combine_matches_pallas_and_oracle(S, num_sms, D, dtype):
+    """kv_len = 1 (every split but the first empty), kv_len on the first
+    split boundary, kv_len = S and one in the middle; several splits of
+    one tile (S = 512 and 1024 at 132 SMs) and two of four tiles (1024 at
+    2 SMs)."""
+    B, Hq, Hkv = 4, 8, 2
+    (jq, jk, jv, _), (tq, tk, tv, _) = _inputs(B, S, Hq, Hkv, D, dtype,
+                                               seed=6)
+    splits, rows = tda.split_plan(S, B, Hkv, num_sms)
+    assert splits > 1 and (num_sms > 2 or rows == 4 * tda.TILE_ROWS)
+    lens = np.array([1, rows, S, S // 2 + 3], np.int32)
+    got, _ = _split_emulation(tq, tk, tv, torch.from_numpy(lens), num_sms)
+    assert torch.isfinite(got.float()).all()
+    jl = jnp.asarray(lens)
+    pallas = jdecode(jq, jk, jv, jl, blk_k=128, interpret=True)
+    oracle = jref.decode_attention_ref(jq, jk, jv, jl)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_combine_ragged_capacity(dtype):
+    """S = 300 (a last split of 44 rows, which the Pallas kernel cannot
+    take), against the oracle and the plain version."""
+    (jq, jk, jv, _), (tq, tk, tv, _) = _inputs(4, 300, 8, 1, 64, dtype,
+                                               seed=7)
+    lens = np.array([1, 128, 300, 257], np.int32)
+    got, splits = _split_emulation(tq, tk, tv, torch.from_numpy(lens))
+    assert splits == 3
+    want = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens))
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
+    plain = tda.decode_attention_plain(tq, tk, tv, torch.from_numpy(lens))
+    np.testing.assert_allclose(_np(got), _np(plain), atol=TOL[dtype])
+
+
 @pytest.mark.h100
 def test_decode_kernel_matches_plain_on_h100():
     """The CUDA kernel against its plain version (H100 only): the shapes
-    above, a ragged capacity, GQA at G = 8 and kv_len at both ends."""
+    above, a ragged capacity, GQA at G = 8, kv_len at both ends, and the
+    engine's decode shapes with kv_len = 1, on the first split boundary,
+    = S and in the middle."""
     if not torch.cuda.is_available() or \
             torch.cuda.get_device_capability() != (9, 0):
         pytest.skip("needs an sm_90 GPU (H100): the CUDA kernel has no "
@@ -152,6 +293,20 @@ def test_decode_kernel_matches_plain_on_h100():
             q, k, v, lens = (t.cuda() for t in tx)
             lens[0] = 1
             lens[-1] = S
+            got = tda.decode_attention_cuda(q, k, v, lens)
+            want = tda.decode_attention_plain(q, k, v, lens)
+            assert float((got.float() - want.float()).abs().max()) \
+                <= TOL[dtype]
+    # GPT-2 Large, TinyLlama, Zamba2 at B = 4, and a ragged D = 128
+    for B, S, Hq, Hkv, D in [(4, 1120, 20, 20, 64), (4, 2144, 32, 4, 64),
+                             (4, 2144, 32, 32, 80), (4, 1000, 16, 2, 128)]:
+        _, rows = tda.split_plan(S, B, Hkv, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        for dtype in ("float32", "bfloat16"):
+            _, tx = _inputs(B, S, Hq, Hkv, D, dtype, seed=8)
+            q, k, v, _ = (t.cuda() for t in tx)
+            lens = torch.tensor([1, rows, S, S // 2 + 3], dtype=torch.int32,
+                                device="cuda")
             got = tda.decode_attention_cuda(q, k, v, lens)
             want = tda.decode_attention_plain(q, k, v, lens)
             assert float((got.float() - want.float()).abs().max()) \

@@ -277,7 +277,7 @@ def test_router_tau_dedupe_and_kv_bonus_route_match_reference():
     # bonus off: warm hints are discarded and the device DP stays in
     # charge (f32 costs), on both sides
     r0 = tbr.BatchRouter(planner=TRoutePlanner(12), cfg=TGTRACConfig(),
-                         total_layers=12, device="cpu")
+                         total_layers=12, backend="torch", device="cpu")
     j0 = jbr.BatchRouter(planner=RoutePlanner(12), cfg=GTRACConfig(),
                          total_layers=12, backend="jnp")
     r0.submit(1, 0.8, warm_ids=warm)
@@ -285,10 +285,27 @@ def test_router_tau_dedupe_and_kv_bonus_route_match_reference():
     _plans_equal([r0.route_window(t_port)[1]], [j0.route_window(t_ref)[1]])
 
 
+@pytest.mark.parametrize("seed", [0, 2])
+def test_auto_backend_off_cuda_plans_as_numpy(seed):
+    """Off CUDA ``auto`` is the host numpy DP, as the reference's ``auto``
+    is off TPU: the same plans, bit for bit, as ``backend="numpy"``."""
+    tcfg = TGTRACConfig()
+    table = _port_layered_anchor(tcfg, L=12, replicas=4,
+                                 seed=seed).snapshot(0.0)
+    taus = np.array([0.0, 0.6, 0.9, 0.95])
+    got = tbr.plan_batched(table, 12, tcfg, taus,
+                           planner=TRoutePlanner(12, k_best=4),
+                           backend="auto", device="cpu")
+    want = tbr.plan_batched(table, 12, tcfg, taus,
+                            planner=TRoutePlanner(12, k_best=4),
+                            backend="numpy", device="cpu")
+    _plans_equal(got, want)
+
+
 def test_unknown_backend_rejected():
     with pytest.raises(ValueError):
         tbr._resolve_backend("pallas", "cpu")
-    assert tbr._resolve_backend("auto", "cpu") == "torch"
+    assert tbr._resolve_backend("auto", "cpu") == "numpy"
     assert tbr._resolve_backend("auto", "cuda") == "kernel"
 
 

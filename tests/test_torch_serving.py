@@ -14,8 +14,9 @@ and the sp / mr / naive / larac baselines). The reference test of the same
 path is ``tests/test_serving.py``'s routed-pipeline tests.
 
 The router backends compared are the device DP (the reference's ``jnp``
-against the port's ``auto``, which is the plain torch DP on the CPU) and
-the host numpy DP on both sides.
+against the port's plain torch DP and its kernel backend, which runs K1's
+plain version on the CPU), ``auto`` (numpy off the card on both sides)
+and the host numpy DP on both sides.
 """
 import dataclasses
 
@@ -87,7 +88,8 @@ def _assert_served_equal(tdone, done):
 
 @pytest.mark.parametrize("disaggregate", [False, True])
 @pytest.mark.parametrize("jax_backend,port_backend",
-                         [("jnp", "auto"), ("numpy", "numpy")])
+                         [("jnp", "auto"), ("jnp", "torch"),
+                          ("jnp", "kernel"), ("numpy", "numpy")])
 def test_run_queue_matches_reference(models, disaggregate, jax_backend,
                                      port_backend):
     kw = dict(disaggregate=disaggregate, prefill_chunk_tokens=16)
@@ -117,7 +119,7 @@ def test_run_queue_flash_matches_reference(models):
 
 
 def test_generate_matches_reference(models):
-    srv, tsrv = _servers(models, {}, "numpy", "auto")
+    srv, tsrv = _servers(models, {}, "numpy", "torch")
     for rid, p in enumerate(_prompts()[:3]):
         out, met = srv.generate(p, max_new_tokens=4, request_id=rid)
         tout, tmet = tsrv.generate(p, max_new_tokens=4, request_id=rid)
@@ -151,7 +153,7 @@ def test_generate_algorithms_match_reference(models, algorithm):
 
 def test_sampled_generate_matches_reference(models):
     """Temperature sampling draws from the testbed RNG on both sides."""
-    srv, tsrv = _servers(models, {}, "numpy", "auto")
+    srv, tsrv = _servers(models, {}, "numpy", "torch")
     p = _prompts()[0]
     out, met = srv.generate(p, max_new_tokens=4, greedy=False,
                             temperature=4.0)
@@ -166,7 +168,7 @@ def test_traced_run_queue_matches_reference(models):
     interval, request id) in the same order."""
     srv, tsrv = _servers(models, dict(trace_enabled=True, disaggregate=True,
                                       prefill_chunk_tokens=16),
-                         "jnp", "auto")
+                         "jnp", "torch")
     for p in _prompts():
         srv.submit(SubmitSpec(prompt=p, max_new_tokens=3))
         tsrv.submit(TSubmitSpec(prompt=p, max_new_tokens=3))
