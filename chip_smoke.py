@@ -95,14 +95,17 @@ that a fault there shows before the long routing phases):
 13. engine profile — ``torch.profiler`` over one prefill of each model's
    longest prompts (4 x 2048; GPT-2 Large 4 x 1024) and over 8 decode
    steps after it: the device's busy share and K3's, K4's, K5's and K6's
-   device time against the weight casts and the matmuls.
+   device time (K4's, K5's and K6's two kernels each together) against
+   the weight casts and the matmuls.
 14. K5 — ``wkv6_chunked`` against its plain version on the card: the
    engine's prefill shape (B = 4, S = 2048, H = 32, K = 64) on model-like
    inputs within 1e-4 x max|plain|, and within 5e-4 absolute on the
    reference test's distribution: B = 4 S = 8, a ragged S = 1000, a
    nonzero state0, lw = -20 and the three shapes of
    ``tests/test_kernels.py``; y and the final state, each shape timed
-   beside its plain version and its bound, per call and on the device.
+   beside its plain version and its bound, per call and on the device
+   (the pre-pass and the scan together, and each apart), with the scan's
+   grid, blocks per SM and waves.
 15. K6 — ``ssd_chunked`` against its plain version on the card: the
    Zamba2 engine's prefill shape (B = 4, S = 2048, H = 80, P = N = 64) on
    model-like inputs within 1e-4 x max|plain|, and on the reference test's
@@ -111,7 +114,8 @@ that a fault there shows before the long routing phases):
    at the two shapes of ``tests/test_kernels.py``;
    y and the final state, each shape timed beside its plain version and
    its bound (with both the bytes and the operations figure), per call and
-   on the device.
+   on the device (the pre-pass and the scan together, and each apart),
+   with the scan's grid, blocks per SM and waves.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and the result line
@@ -132,10 +136,12 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 #: published H100 SXM peaks (NVIDIA data sheet, dense): device memory rate,
-#: FP32 outside the tensor cores, bf16 tensor cores
+#: FP32 outside the tensor cores, bf16 tensor cores; and the rate of a split
+#: 3xTF32 product (K5's and K6's scans): three passes at the TF32 peak
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32X3_FLOP_PER_S = 495e12 / 3
 
 DEVICE = "cuda"
 SEED = 0
@@ -196,14 +202,10 @@ def name_matches(key: str, kernel) -> bool:
     return any(n in key for n in names)
 
 
-def device_ms(fn, kernel, iters: int = 20):
-    """Device-only time per call of ``fn``: the summed device time of every
-    kernel whose profiler name matches ``kernel`` (a substring such as
-    ``"route_kernel("``, or a tuple of them, so that a wrapper's split and
-    combine kernels count together; None for every kernel ``fn`` runs, as
-    for a library call) over ``iters`` calls, divided by ``iters``, from
-    ``torch.profiler``; None when the profiler records no matching device
-    activity."""
+def device_times(fn, iters: int = 20) -> list:
+    """[(profiler kernel name, device ms per call)] for every device
+    kernel ``fn`` runs, from ``torch.profiler`` over ``iters`` calls (after
+    one unprofiled call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -214,15 +216,46 @@ def device_ms(fn, kernel, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total, found = 0.0, False
+    out = []
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and name_matches(e.key, kernel):
+        if e.device_type == DeviceType.CUDA:
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = getattr(e, "self_cuda_time_total", 0)
-            total += t
-            found = True
-    return total / 1e3 / iters if found else None
+            out.append((e.key, t / 1e3 / iters))
+    return out
+
+
+def device_ms(fn, kernel, iters: int = 20):
+    """Device-only time per call of ``fn``: the summed device time of every
+    kernel whose profiler name matches ``kernel`` (a substring such as
+    ``"route_kernel("``, or a tuple of them, so that a wrapper's two
+    kernels count together; None for every kernel ``fn`` runs, as for a
+    library call); None when the profiler records no matching device
+    activity."""
+    times = [t for k, t in device_times(fn, iters) if name_matches(k, kernel)]
+    return sum(times) if times else None
+
+
+def device_ms_each(fn, kernels, iters: int = 20) -> dict:
+    """Device-only time per call of ``fn`` for each profiler name in
+    ``kernels`` (a wrapper's pre-pass and its scan apart), from one
+    profile; a name with no matching activity maps to None."""
+    out = {name: None for name in kernels}
+    for key, t in device_times(fn, iters):
+        for name in kernels:
+            if name in key:
+                out[name] = (out[name] or 0.0) + t
+    return out
+
+
+def grid_fit(blocks: int, blocks_per_sm: int) -> dict:
+    """A grid's fit on this card: blocks per SM (occupancy calculator) and
+    waves, blocks / (blocks per SM x SMs)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"ctas": blocks, "blocks_per_sm": blocks_per_sm,
+            "waves": blocks / (blocks_per_sm * sms)}
 
 
 def wall_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -469,6 +502,9 @@ K3_ENGINE_SHAPES = {(4, 1024, 20, 20, 64): "gpt2-large",
                     (4, 2048, 32, 32, 80): "zamba2-2.7b"}
 #: profiler names of K4's split and combine kernels
 K4_KERNELS = ("decode_split_kernel<", "decode_combine_kernel<")
+#: K5's and K6's two kernels: the pre-pass, then the scan
+K5_KERNELS = ("wkv6_prep_kernel<", "wkv6_scan_kernel<")
+K6_KERNELS = ("ssd_prep_kernel<", "ssd_scan_kernel<")
 
 
 def phase_k3():
@@ -1024,12 +1060,12 @@ def k5_bound_ms(B, S, H, K) -> tuple:
     """Least time for the WKV scan on this card: r, k, v, lw read once and
     y written once (f32), u and state0 read and the final state written
     once, against the recurrence's 4 K^2 FLOP per token and head (the
-    state product and the state update, 2 K^2 multiply-adds) at the FP32
-    peak."""
+    state product and the state update, 2 K^2 multiply-adds) at the rate
+    of the kernel's split 3xTF32 products."""
     nbytes = 4 * (5 * B * S * H * K + H * K + 2 * B * H * K * K)
     flops = 4 * K * K * B * S * H
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / TF32X3_FLOP_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
 
@@ -1104,13 +1140,17 @@ def phase_k5():
         big = B * S * H * K > 1 << 22
         row["ms"] = cuda_ms(lambda: wk.wkv6_chunked_cuda(*args),
                             iters=20 if big else 100)
-        row["device_ms_per_launch"] = device_ms(
-            lambda: wk.wkv6_chunked_cuda(*args), "wkv6_chunk_kernel<",
-            iters=10 if big else 20)
+        each = device_ms_each(lambda: wk.wkv6_chunked_cuda(*args),
+                              K5_KERNELS, iters=10 if big else 20)
+        row["prep_device_ms"], row["scan_device_ms"] = each.values()
+        row["device_ms_per_launch"] = (None if None in each.values() else
+                                       sum(each.values()))
         row["plain_ms"] = cuda_ms(lambda: wk.wkv6_chunked_plain(*args),
                                   iters=5 if big else 20, warmup=1)
         row["bound_ms"], row["bound_by"] = k5_bound_ms(B, S, H, K)
-        row["ctas"] = B * H
+        per_sm, slices = wk.scan_occupancy(K)
+        row.update(grid_fit(slices * H * B, per_sm))
+        row["prep_ctas"] = -(-S // wk.CUDA_CHUNK) * H * B
         rows[name] = row
         log({"k5": row})
     return rows
@@ -1119,20 +1159,21 @@ def phase_k5():
 def k6_bound_ms(B, S, H, P, N) -> tuple:
     """Least time for the SSD scan on this card: x read and y written once,
     dt, la, Bm, Cm, h0 read and the final state written once (f32), against
-    the operations the function needs at the FP32 peak. Per token and head
-    2 N P for the state update and 2 N P for the inter-chunk output; per
-    chunk of c tokens (C = 64, the last one ragged) and head the lower
-    triangle s <= t of the intra-chunk product, c (c + 1) / 2 entries of
-    2 P, and per chunk and batch row that triangle of C . B^T (shared by the
-    heads), c (c + 1) / 2 entries of 2 N. The upper triangle, which a
-    chunked kernel may compute and mask, carries no data."""
+    the operations the function needs. Per token and head 2 N P for the
+    state update and 2 N P for the inter-chunk output; per chunk of c
+    tokens (C = 64, the last one ragged) and head the lower triangle s <= t
+    of the intra-chunk product, c (c + 1) / 2 entries of 2 P: those at the
+    rate of the scan's split 3xTF32 products; and per chunk and batch row
+    that triangle of C . B^T (shared by the heads), c (c + 1) / 2 entries
+    of 2 N, at the FP32 peak (the pre-pass's FMAs). The upper triangle,
+    which a chunked kernel may compute and mask, carries no data."""
     C = 64
     nbytes = 4 * (2 * B * S * H * P + 2 * B * S * H + 2 * B * S * N
                   + 2 * B * H * N * P)
     tri = (S // C) * C * (C + 1) + (S % C) * (S % C + 1)  # sum of c (c + 1)
-    flops = B * (H * (4 * N * P * S + P * tri) + N * tri)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = (B * H * (4 * N * P * S + P * tri) / TF32X3_FLOP_PER_S
+             + B * N * tri / FP32_FLOP_PER_S) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", t_bytes, t_ops)
 
@@ -1214,14 +1255,18 @@ def phase_k6():
         big = B * S * H * P > 1 << 22
         row["ms"] = cuda_ms(lambda: sk.ssd_chunked_cuda(*args),
                             iters=20 if big else 100)
-        row["device_ms_per_launch"] = device_ms(
-            lambda: sk.ssd_chunked_cuda(*args), "ssd_chunk_kernel<",
-            iters=10 if big else 20)
+        each = device_ms_each(lambda: sk.ssd_chunked_cuda(*args),
+                              K6_KERNELS, iters=10 if big else 20)
+        row["prep_device_ms"], row["scan_device_ms"] = each.values()
+        row["device_ms_per_launch"] = (None if None in each.values() else
+                                       sum(each.values()))
         row["plain_ms"] = cuda_ms(lambda: sk.ssd_chunked_plain(*args),
                                   iters=5 if big else 20, warmup=1)
         (row["bound_ms"], row["bound_by"], row["bytes_ms"],
          row["operations_ms"]) = k6_bound_ms(B, S, H, P, N)
-        row["ctas"] = B * H
+        per_sm, slices = sk.scan_occupancy(P, N)
+        row.update(grid_fit(slices * H * B, per_sm))
+        row["prep_ctas"] = -(-S // sk.CHUNK) * 4 * B
         rows[name] = row
         log({"k6": row})
     return rows
@@ -1536,9 +1581,10 @@ def phase_engine_profile(gpt2_params):
     """Device time by kernel over one prefill of each engine model's
     longest prompts (batch 4) and over decode steps after it: the device's
     busy share and the hand-written kernels' shares (K3 in the attention
-    prefills, K5 in RWKV6's, K6 and K3 in Zamba2's, K4 in decode: its
-    split and combine kernels together, ``k4_kernel_launches`` counting
-    both) against the weight casts and the matmuls."""
+    prefills, K5 in RWKV6's, K6 and K3 in Zamba2's, K4 in decode; K4's
+    split and combine kernels, K5's and K6's pre-pass and scan, each pair
+    together, its ``*_kernel_launches`` counting both) against the weight
+    casts and the matmuls."""
     import torch
     from repro_torch.models.api import build_model
     steps = 8
@@ -1569,9 +1615,9 @@ def phase_engine_profile(gpt2_params):
             sync()
             k3 = ("k3", tuple(K3_KERNELS.values()))
             if cfg.family == "ssm":
-                hand = [("k5", "wkv6_chunk_kernel")]
+                hand = [("k5", K5_KERNELS)]
             elif cfg.family == "hybrid":
-                hand = [("k6", "ssd_chunk_kernel"), k3]
+                hand = [("k6", K6_KERNELS), k3]
             else:
                 hand = [k3]
             windows.append(("prefill", hand, profile_window(prefill)))

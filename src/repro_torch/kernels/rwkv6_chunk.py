@@ -25,9 +25,15 @@ the oracle ``ref.wkv6_ref``):
   ``CHUNK = 32`` tokens as the reference model's jnp form
   (``repro.models.rwkv6.wkv6_chunked``). It is the port's one chunked
   implementation: ``models/rwkv6.wkv6_chunked`` is this function.
-* ``wkv6_chunked_cuda`` — the hand-written CUDA kernel
-  (``csrc/rwkv6_chunk.cu``): one block per (batch row, head) carrying the
-  state in shared memory through a loop over chunks of 16 tokens.
+* ``wkv6_chunked_cuda`` — the hand-written CUDA kernels
+  (``csrc/rwkv6_chunk.cu``), two launches per call on chunks of
+  ``CUDA_CHUNK = 16`` tokens: a fully parallel pre-pass writes the decayed
+  r and k, each chunk's state decay and its scores A (the strict lower
+  triangle and the bonus diagonal) into scratch arrays the wrapper
+  allocates, and the scan runs one block per (V slice, head, batch row),
+  each carrying ``CUDA_SLICES[K]`` columns of the state through the
+  chunks, the next chunks' tiles in flight, its products on the tensor
+  cores as split 3xTF32 products (f32 accuracy, not single-pass TF32).
 
 Both take any S. The reference asserts ``S % chunk == 0`` (its model at
 ``chunk = min(32, S)``), so it cannot prefill a 40-token prompt; here the
@@ -47,12 +53,18 @@ from repro_torch.kernels.build import CudaLibrary
 
 #: tokens per chunk of the plain version (the reference model's CHUNK)
 CHUNK = 32
-#: head sizes the CUDA kernel is instantiated for
-CUDA_HEAD_DIMS = (8, 16, 32, 64)
+#: tokens per chunk of the CUDA kernels (their own choice: see the source)
+CUDA_CHUNK = 16
+#: head sizes the CUDA kernels are instantiated for, each with the state
+#: columns one scan block carries (``REPRO_WKV6_SHAPES`` in the source)
+CUDA_SLICES = {8: 8, 16: 16, 32: 16, 64: 16}
+CUDA_HEAD_DIMS = tuple(sorted(CUDA_SLICES))
 
 _LIB = CudaLibrary("rwkv6_chunk.cu", {
-    "wkv6_chunked_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    "wkv6_chunked_launch": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
+    "wkv6_chunked_occupancy": [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                               ctypes.POINTER(ctypes.c_int)],
 })
 
 
@@ -111,13 +123,16 @@ def wkv6_chunked_plain(r, k, v, lw, u, state0):
 
 
 def wkv6_chunked_cuda(r, k, v, lw, u, state0):
-    """The CUDA kernel on CUDA tensors; same contract as the plain version.
+    """The CUDA kernels on CUDA tensors; same contract as the plain version.
 
     r, k, v, lw (B, S, H, K), u (H, K) and state0 (B, H, K, K): float32,
-    contiguous, all on one CUDA device; K in ``CUDA_HEAD_DIMS``; lw <= 0
+    contiguous, all on one CUDA device; K in ``CUDA_HEAD_DIMS``; r, k, v
+    and lw 16-byte aligned (they are read 16 bytes at a time); lw <= 0
     (the model's ``_decay`` gives ``-exp(...)``). Raises on anything else
-    and never copies: a strided or bf16 input is refused, not converted.
-    ``launches`` counts the kernel launches this wrapper made."""
+    and never copies: a strided, misaligned or bf16 input is refused, not
+    converted.
+    ``launches`` counts the calls that launched the kernels (the pre-pass
+    and the scan: one count for both)."""
     if r.dim() != 4:
         raise ValueError("wkv6_chunked_cuda: r must be (B, S, H, K), got "
                          f"{tuple(r.shape)}")
@@ -148,20 +163,45 @@ def wkv6_chunked_cuda(r, k, v, lw, u, state0):
         if t.device.type != "cuda" or t.device != r.device:
             raise ValueError(f"wkv6_chunked_cuda: {name} must be on the "
                              f"CUDA device of r, got {t.device}")
+    for name, t in args[:4]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"wkv6_chunked_cuda: {name} must be 16-byte "
+                             "aligned")
     y = torch.empty_like(r)
     state = torch.empty_like(state0)
     if B == 0 or H == 0:
         return y, state
+    nch = -(-S // CUDA_CHUNK)
+    rdec, kdec = torch.empty_like(r), torch.empty_like(k)
+    wlast = torch.empty((B, H, nch, K), dtype=torch.float32, device=r.device)
+    scores = torch.empty((B, H, nch, CUDA_CHUNK, CUDA_CHUNK),
+                         dtype=torch.float32, device=r.device)
     lib = _LIB.get()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.wkv6_chunked_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-            u.data_ptr(), state0.data_ptr(), y.data_ptr(), state.data_ptr(),
-            B, S, H, K, stream)
+            u.data_ptr(), state0.data_ptr(), rdec.data_ptr(),
+            kdec.data_ptr(), wlast.data_ptr(), scores.data_ptr(),
+            y.data_ptr(), state.data_ptr(), B, S, H, K, stream)
     _LIB.check(err, "wkv6_chunked launch")
     wkv6_chunked_cuda.launches += 1
     return y, state
 
 
 wkv6_chunked_cuda.launches = 0
+
+
+def scan_occupancy(K, device=None):
+    """How the scan kernel for head size K sits on a CUDA device: (blocks
+    per SM, V slices per head), from the CUDA occupancy calculator."""
+    if K not in CUDA_SLICES:
+        raise ValueError(f"scan_occupancy: head size {K} not in "
+                         f"{CUDA_HEAD_DIMS}")
+    lib = _LIB.get()
+    blocks, slices = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.wkv6_chunked_occupancy(K, ctypes.byref(blocks),
+                                         ctypes.byref(slices))
+    _LIB.check(err, "wkv6_chunked occupancy")
+    return blocks.value, slices.value

@@ -25,9 +25,15 @@ Three versions of the recurrence live here:
   ``CHUNK = 64`` tokens as the reference model's jnp form
   (``repro.models.mamba2.ssd_chunked``). It is the port's one chunked
   implementation: ``models/mamba2.ssd_chunked`` is this function.
-* ``ssd_chunked_cuda`` — the hand-written CUDA kernel
-  (``csrc/ssd_chunk.cu``): one block per (batch row, head) carrying the
-  state in shared memory through a loop over chunks of 64 tokens.
+* ``ssd_chunked_cuda`` — the hand-written CUDA kernels
+  (``csrc/ssd_chunk.cu``), two launches per call into scratch arrays the
+  wrapper allocates: a fully parallel pre-pass writes G = C . B^T once per
+  (batch row, chunk of 64), shared by all heads, and each chunk's prefix
+  sums of la (left to right) with the factors they give; the scan runs
+  one block per (head, batch row), carrying the state in shared memory
+  through the chunks, the next chunk's tiles in flight, its products on
+  the tensor cores as split 3xTF32 products (f32 accuracy, not single-pass
+  TF32).
 
 Both chunked versions take any S. The reference asserts ``S % chunk == 0``
 (its model at ``chunk = min(64, S)``), so it cannot prefill a 100-token
@@ -45,15 +51,19 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.build import CudaLibrary
 
-#: tokens per chunk of the plain version (the reference model's CHUNK)
+#: tokens per chunk of the plain version and of the CUDA kernels (the
+#: reference model's CHUNK)
 CHUNK = 64
-#: the (head size P, state size N) pairs the CUDA kernel is instantiated
+#: the (head size P, state size N) pairs the CUDA kernels are instantiated
 #: for: Zamba2's and the reference kernel test's two
 CUDA_SHAPES = ((16, 8), (32, 16), (64, 64))
 
 _LIB = CudaLibrary("ssd_chunk.cu", {
-    "ssd_chunked_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    "ssd_chunked_launch": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
+    "ssd_chunked_occupancy": [ctypes.c_int, ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_int),
+                              ctypes.POINTER(ctypes.c_int)],
 })
 
 
@@ -114,14 +124,16 @@ def ssd_chunked_plain(x, dt, la, Bm, Cm, h0):
 
 
 def ssd_chunked_cuda(x, dt, la, Bm, Cm, h0):
-    """The CUDA kernel on CUDA tensors; same contract as the plain version.
+    """The CUDA kernels on CUDA tensors; same contract as the plain version.
 
     x (B, S, H, P), dt and la (B, S, H), Bm and Cm (B, S, N) and h0
     (B, H, N, P): float32, contiguous, all on one CUDA device; (P, N) in
-    ``CUDA_SHAPES``; la <= 0 (the model's
+    ``CUDA_SHAPES``; x, Bm and Cm 16-byte aligned (they are copied by
+    16-byte ``cp.async``); la <= 0 (the model's
     ``-exp(A_log) * softplus(...)``). Raises on anything else and never
-    copies: a strided or bf16 input is refused, not converted.
-    ``launches`` counts the kernel launches this wrapper made."""
+    copies: a strided, misaligned or bf16 input is refused, not converted.
+    ``launches`` counts the calls that launched the kernels (the pre-pass
+    and the scan: one count for both)."""
     if x.dim() != 4:
         raise ValueError("ssd_chunked_cuda: x must be (B, S, H, P), got "
                          f"{tuple(x.shape)}")
@@ -150,20 +162,42 @@ def ssd_chunked_cuda(x, dt, la, Bm, Cm, h0):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"ssd_chunked_cuda: {name} must be on the CUDA "
                              f"device of x, got {t.device}")
+        if name in ("x", "Bm", "Cm") and t.data_ptr() % 16:
+            raise ValueError(f"ssd_chunked_cuda: {name} must be 16-byte "
+                             "aligned")
     y = torch.empty_like(x)
     hout = torch.empty_like(h0)
     if B == 0 or H == 0:
         return y, hout
+    nch = -(-S // CHUNK)
+    gram = torch.empty((B, nch, CHUNK, CHUNK), dtype=torch.float32,
+                       device=x.device)
+    aux = torch.empty((4, B, H, nch, CHUNK), dtype=torch.float32,
+                      device=x.device)
     lib = _LIB.get()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_chunked_launch(
             x.data_ptr(), dt.data_ptr(), la.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), h0.data_ptr(), y.data_ptr(), hout.data_ptr(),
-            B, S, H, P, N, stream)
+            Cm.data_ptr(), h0.data_ptr(), gram.data_ptr(), aux.data_ptr(),
+            y.data_ptr(), hout.data_ptr(), B, S, H, P, N, stream)
     _LIB.check(err, "ssd_chunked launch")
     ssd_chunked_cuda.launches += 1
     return y, hout
 
 
 ssd_chunked_cuda.launches = 0
+
+
+def scan_occupancy(P, N, device=None):
+    """How the scan kernel for (P, N) sits on a CUDA device: (blocks per
+    SM, column slices per head), from the CUDA occupancy calculator."""
+    if (P, N) not in CUDA_SHAPES:
+        raise ValueError(f"scan_occupancy: {(P, N)} not in {CUDA_SHAPES}")
+    lib = _LIB.get()
+    blocks, slices = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.ssd_chunked_occupancy(P, N, ctypes.byref(blocks),
+                                        ctypes.byref(slices))
+    _LIB.check(err, "ssd_chunked occupancy")
+    return blocks.value, slices.value

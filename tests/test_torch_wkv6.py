@@ -20,9 +20,21 @@ The same inputs, made with numpy from a seed, go to both sides.
   within 5e-4.
 * The port's ``ref.wkv6_ref`` against the reference's, within 1e-5.
 
-The CUDA kernel runs only on an H100 (the ``h100`` tests; skipped
+The CUDA kernels run only on an H100 (the ``h100`` tests; skipped
 elsewhere); ``chip_smoke.py`` runs the same checks at the engine's shapes.
-Its wrapper's refusals are checked here: they happen before any launch.
+Their wrapper's refusals are checked here: they happen before any launch.
+
+The CUDA kernels take another order of work than the plain version: a
+pre-pass takes each 16-token chunk's prefix sums of lw as a shuffle tree
+scan made non-increasing by a min-scan, and from them the decayed r and k,
+the chunk's state decay and the scores A (strict lower triangle, bonus
+diagonal); the scan carries each slice of the state's V columns apart and
+runs its products on the tensor cores as split 3xTF32 products (x = hi +
+lo, hi rounded to TF32, lo = x - hi read as TF32). A test-local emulation
+of that arithmetic (``_kernel_emulation``) is held against the Pallas
+kernel, the oracle and the reference model's chunked form at the
+tolerances above, at ragged S next to the chunk, with a nonzero initial
+state, under strong decay and with the columns cut into slices.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +47,8 @@ from repro.models import rwkv6 as jrwkv6
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_chunk as tk
+
+from _tf32 import mm3
 
 torch.set_num_threads(1)
 
@@ -188,6 +202,130 @@ def test_cuda_wrapper_refuses_without_copying(what, change, match):
     assert tk.wkv6_chunked_cuda.launches == 0
 
 
+def _tree_prefix(lw, dim):
+    """The pre-pass's prefix sums along ``dim`` (16 values): a shuffle tree
+    scan (step d adds the value d back), then each value replaced by the
+    minimum of itself and all before it (a min-scan of the same shape).
+    Returns (inclusive, exclusive = the inclusive one shifted by one)."""
+    c = lw.movedim(dim, 0).clone()
+    n = c.shape[0]
+    for op in (torch.add, torch.minimum):
+        d = 1
+        while d < n:
+            c = torch.cat([c[:d], op(c[d:], c[:-d])])
+            d *= 2
+    prev = torch.cat([torch.zeros_like(c[:1]), c[:-1]])
+    return c.movedim(0, dim), prev.movedim(0, dim)
+
+
+def _kernel_emulation(r, k, v, lw, u, state0, vs=None):
+    """K5's order of work in torch (f32): per chunk of 16 the tree prefix
+    sums, rdec = r exp(cp), kdec = k exp(cum_last - cum), exp(cum_last) and
+    the scores A (s < t, and the bonus r u k on the diagonal); the state's
+    V columns in slices of ``vs`` (default: the kernel's), each carried
+    through the chunks apart, y = rdec . S + A . v and
+    S <- exp(cum_last) S + kdec^T . v with 3xTF32 products."""
+    B, S, H, K = r.shape
+    vs = vs or tk.CUDA_SLICES.get(K, K)
+    C = tk.CUDA_CHUNK
+    n = -(-S // C)
+    pad = n * C - S
+    if pad:
+        r, k, v, lw = (torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+                       for a in (r, k, v, lw))
+    rs, ks, vv, lws = (a.reshape(B, n, C, H, K).permute(0, 1, 3, 2, 4)
+                       for a in (r, k, v, lw))                 # (B,n,H,C,K)
+    cum, cp = _tree_prefix(lws, 3)
+    last = cum[..., -1:, :]
+    rdec, kdec, wl = rs * torch.exp(cp), ks * torch.exp(last - cum), \
+        torch.exp(last[..., 0, :])
+    strict = torch.ones((C, C), dtype=torch.bool).tril(-1)
+    diff = cp[..., :, None, :] - cum[..., None, :, :]          # (...,t,s,K)
+    A = (rs[..., :, None, :] * ks[..., None, :, :] * torch.exp(
+        torch.where(strict[..., None], diff, torch.tensor(float("-inf"))))
+         ).sum(-1)
+    A = A + torch.diag_embed((rs * u[None, None, :, None, :] * ks).sum(-1))
+    ys, states = [], []
+    for j0 in range(0, K, vs):
+        st = state0[..., j0:j0 + vs].clone()
+        yc = []
+        for c in range(n):
+            vc = vv[:, c, ..., j0:j0 + vs]
+            yc.append(mm3(rdec[:, c], st) + mm3(A[:, c], vc))
+            st = wl[:, c, ..., None] * st + \
+                mm3(kdec[:, c].transpose(-1, -2), vc)
+        ys.append(torch.stack(yc, 1))
+        states.append(st)
+    y = torch.cat(ys, -1).permute(0, 1, 3, 2, 4).reshape(B, n * C, H, K)
+    return y[:, :S], torch.cat(states, -1)
+
+
+def test_tree_prefix_is_non_increasing_and_close_to_sequential():
+    """The pre-pass's tree scan with its min-scan never increases for
+    lw <= 0 (random, zeros, tiny values, a zero-padded tail, lw = -20), so
+    cp_t - cum_s (s < t), cum_last - cum_s and cp_t are <= 0 in floating
+    point; and it stays within a few ulps of the sequential sums."""
+    rng = np.random.default_rng(30)
+    lw = -np.exp(rng.standard_normal((16, 200)) * 4 - 3).astype(np.float32)
+    lw[:, 0] = 0.0
+    lw[5:, 1] = 0.0
+    lw[:, 2] = -1e-30
+    lw[:, 3] = -20.0
+    cum, cp = _tree_prefix(torch.from_numpy(lw), 0)
+    assert bool((cum[1:] <= cum[:-1]).all()) and bool((cp <= 0).all())
+    assert bool((cp[1:] == cum[:-1]).all())
+    seq = np.cumsum(lw.astype(np.float64), axis=0)
+    assert np.abs(cum.numpy() - seq).max() <= 4e-6 * max(1.0, np.abs(seq).max())
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk", SHAPES)
+def test_kernel_arithmetic_matches_pallas_and_oracle(B, S, H, K, chunk):
+    """The CUDA kernels' order of work and 3xTF32 products against the
+    Pallas kernel and the oracle at the reference test's shapes."""
+    arrs, tx = _inputs(B, S, H, K)
+    y, s = _kernel_emulation(*tx)
+    jx = [jnp.asarray(a) for a in arrs]
+    py, ps = jwkv6_pallas(*jx, chunk=chunk, interpret=True)
+    ry, rs = jref.wkv6_ref(*jx)
+    for got, want in ((y, py), (s, ps), (y, ry), (s, rs)):
+        _close(got, want, TOL)
+
+
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 100])
+def test_kernel_arithmetic_ragged_length(S):
+    """Ragged S next to the kernels' 16-token chunk, with a nonzero initial
+    state, against the oracle."""
+    arrs, tx = _inputs(2, S, 2, 16, seed=31, state=True)
+    y, s = _kernel_emulation(*tx)
+    ry, rs = jref.wkv6_ref(*[jnp.asarray(a) for a in arrs])
+    _close(y, ry, TOL)
+    _close(s, rs, TOL)
+
+
+@pytest.mark.parametrize("K,vs", [(8, 8), (16, 16), (32, 16), (64, 16),
+                                  (64, 8)])
+def test_kernel_arithmetic_column_slices(K, vs):
+    """The state's V columns carried in slices apart, then concatenated,
+    give the reference model's chunked form (1e-5 of scale) at every head
+    size the kernels take, with a nonzero initial state."""
+    arrs, tx = _inputs(1, 64, 2, K, seed=32, state=True)
+    y, s = _kernel_emulation(*tx, vs=vs)
+    jy, js = jrwkv6.wkv6_chunked(*[jnp.asarray(a) for a in arrs], chunk=32)
+    for got, want in ((y, jy), (s, js)):
+        _close(got, want, 1e-5 * float(np.abs(np.asarray(want)).max()))
+
+
+def test_kernel_arithmetic_strong_decay_stays_finite():
+    """lw = -20, a nonzero initial state and a ragged tail: finite, and
+    equal to the oracle and the Pallas kernel."""
+    arrs, tx = _inputs(1, 70, 1, 8, seed=33, state=True, lw=-20.0)
+    y, s = _kernel_emulation(*tx)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    ry, rs = jref.wkv6_ref(*[jnp.asarray(a) for a in arrs])
+    _close(y, ry, TOL)
+    _close(s, rs, TOL)
+
+
 def _needs_h100():
     if not torch.cuda.is_available() or \
             torch.cuda.get_device_capability() != (9, 0):
@@ -201,11 +339,13 @@ def _needs_h100():
     (2, 96, 3, 8, False, None), (1, 32, 2, 8, True, None),
     (1, 64, 1, 8, False, -20.0), (3, 40, 2, 64, True, None),
     (1, 1, 2, 32, True, None),
-])
+] + [(1, S, 1, K, True, None) for K in tk.CUDA_HEAD_DIMS
+     for S in (15, 16, 17, 32, 33)])
 def test_cuda_kernel_matches_plain_on_h100(B, S, H, K, state, lw):
-    """The CUDA kernel against its plain version (H100 only): the
-    reference test's shapes, a nonzero state, lw = -20 and ragged
-    sequences, within 5e-4."""
+    """The CUDA kernels against their plain version (H100 only): the
+    reference test's shapes, a nonzero state, lw = -20, ragged sequences,
+    and every head size the kernels take with S at and next to the chunk
+    boundaries on a grid of one head (B = H = 1), within 5e-4."""
     _needs_h100()
     _, tx = _inputs(B, S, H, K, seed=8, state=state, lw=lw)
     args = [t.cuda() for t in tx]
