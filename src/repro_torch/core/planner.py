@@ -63,7 +63,8 @@ import torch
 from repro_torch.configs.base import GTRACConfig
 from repro_torch.core.trust import effective_cost_vec
 from repro_torch.core.types import PeerTable, RouteResult
-from repro_torch.kernels.tropical_route import route_csr
+from repro_torch.kernels.tropical_route import (route_csr, upload_tau,
+                                                upload_window_state)
 
 _INF = float("inf")
 
@@ -121,26 +122,24 @@ class CompiledGraph:
             self._device[key] = route_csr(starts, ends, self.total_layers)
         return self._device[key]
 
-    def device_state(self, table: PeerTable, device):
-        """torch (latency f32, trust f32, alive∧valid bool) on ``device``
-        for ``table``, cached by the registry snapshot ``version`` so
-        repeated device batches against an unchanged registry skip the
-        host->device upload entirely. ``alive`` folds in the
-        topology-validity mask (the CSR compile filters degenerate
+    def device_state(self, table: PeerTable, device, tau):
+        """torch (latency f32, trust f32, alive∧valid bool, tau f32) on
+        ``device`` for ``table`` and the (R,) trust floors ``tau``, in ONE
+        host-to-device copy: the state and tau packed together when the
+        registry snapshot ``version`` moved, tau alone when it did not
+        (the state stays cached under the version). ``alive`` folds in
+        the topology-validity mask (the CSR compile filters degenerate
         segments; the dense device path masks them). The f64 table
         columns are rounded to f32 on the host, as the reference does."""
         key = (getattr(table, "version", -1), id(table), str(device))
         hit = self._device.get("state")
         if hit is not None and hit[0] == key:
-            return hit[1]
-        arrs = (torch.as_tensor(np.asarray(table.latency_ms, np.float32),
-                                device=device),
-                torch.as_tensor(np.asarray(table.trust, np.float32),
-                                device=device),
-                torch.as_tensor(np.asarray(table.alive & self.valid),
-                                device=device))
-        self._device["state"] = (key, arrs)
-        return arrs
+            return (*hit[1], upload_tau(tau, device))
+        lat, trust, alive, tau_t = upload_window_state(
+            table.latency_ms, table.trust, table.alive & self.valid, tau,
+            device)
+        self._device["state"] = (key, (lat, trust, alive))
+        return lat, trust, alive, tau_t
 
 
 def compile_table(table: PeerTable, total_layers: int) -> CompiledGraph:

@@ -2,7 +2,8 @@
 
 Port of ``repro.kernels.ops`` for the kernels ported so far (K1
 ``tropical_route_kbest``, K2 ``tropical_route``, K3 ``flash_attention``,
-K4 ``decode_attention``, K5 ``wkv6_chunked`` and K6 ``ssd_chunked``).
+K4 ``decode_attention``, K5 ``wkv6_chunked`` and K6 ``ssd_chunked``),
+and the fused routing-window entries that run K1's and K2's DPs.
 The rule is the tensor's
 device, not a fallback: a CPU tensor goes to the kernel's plain PyTorch
 version (that is how the tests run without a GPU); a CUDA tensor launches
@@ -21,7 +22,11 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
 from repro_torch.kernels.rwkv6_chunk import (wkv6_chunked_cuda,
                                              wkv6_chunked_plain)
 from repro_torch.kernels.ssd_chunk import ssd_chunked_cuda, ssd_chunked_plain
-from repro_torch.kernels.tropical_route import (tropical_route_cuda,
+from repro_torch.kernels.tropical_route import (route_window_cuda,
+                                                route_window_kbest_cuda,
+                                                route_window_kbest_plain,
+                                                route_window_plain,
+                                                tropical_route_cuda,
                                                 tropical_route_kbest_cuda,
                                                 tropical_route_kbest_plain,
                                                 tropical_route_plain)
@@ -101,6 +106,34 @@ def tropical_route_kbest(starts, ends, costs, *, total_layers: int,
     return tropical_route_kbest_cuda(starts, ends, costs,
                                      total_layers=total_layers,
                                      k_best=k_best)
+
+
+def route_window(csr, starts, latency, trust, alive, tau, *,
+                 timeout_ms: float, total_layers: int, k_max: int):
+    """One routing window, single best: effective costs, K2's DP and the
+    backtrack -> (hops (R, k_max) int32, costs (R,) f32)
+    (``tropical_route.route_window_plain``). On CUDA one launch, counted
+    as K2's."""
+    kw = dict(timeout_ms=timeout_ms, total_layers=total_layers, k_max=k_max)
+    if _on_cpu(latency):
+        return route_window_plain(csr, starts, latency, trust, alive, tau,
+                                  **kw)
+    return route_window_cuda(csr, starts, latency, trust, alive, tau, **kw)
+
+
+def route_window_kbest(csr, starts, latency, trust, alive, tau, *,
+                       timeout_ms: float, total_layers: int, k_best: int,
+                       k_max: int):
+    """One routing window, K best: effective costs, K1's DP and the
+    backtrack -> (hops (R, K, k_max) int32, costs (R, K) f32). On CUDA one
+    launch, counted as K1's."""
+    kw = dict(timeout_ms=timeout_ms, total_layers=total_layers,
+              k_best=k_best, k_max=k_max)
+    if _on_cpu(latency):
+        return route_window_kbest_plain(csr, starts, latency, trust, alive,
+                                        tau, **kw)
+    return route_window_kbest_cuda(csr, starts, latency, trust, alive, tau,
+                                   **kw)
 
 
 def reset_launch_counts() -> None:

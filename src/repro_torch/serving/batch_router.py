@@ -9,9 +9,10 @@ within a window are solved in ONE batched DP call against the planner's
 compiled snapshot, and every request gets back a full ``planner.RoutePlan``
 with K failover alternates.
 
-Backends: ``kernel`` runs the DP through ``kernels.ops`` — the CUDA
-``tropical_route_kbest`` kernel (K1) when the router's device is CUDA, its
-plain version on the CPU; ``torch`` forces the plain PyTorch
+Backends: ``kernel`` routes the window through ``kernels.ops`` — on a
+CUDA device one launch of the fused window kernel (effective costs, K1's
+DP and the backtrack) between one upload and one download, on the CPU its
+plain composition; ``torch`` forces the plain PyTorch
 ``routing_torch.layered_dp_kbest`` on the router's device; ``numpy`` runs
 the vectorized host DP (``RoutePlanner.solve_kbest_batched``). ``auto``
 resolves to ``kernel`` on a CUDA device and to ``numpy`` elsewhere, as
@@ -114,14 +115,15 @@ def plan_batched(table: PeerTable, total_layers: int, cfg: GTRACConfig,
         table, total_layers, cfg, taus, k_max=total_layers, k_best=k,
         use_kernel=(backend == "kernel"), planner=planner, device=device)
     plans: List[RoutePlan] = []
+    hops, costs = hops.tolist(), costs.tolist()   # Python ints and floats
     for r in range(taus.shape[0]):
         chains: List[List[int]] = []
         ccosts: List[float] = []
         for j in range(k):
-            c = float(costs[r, j])
+            c = costs[r][j]
             if not c < _INF_THRESH:
                 break                      # nondecreasing: rest infeasible
-            chains.append([int(x) for x in hops[r, j] if x >= 0])
+            chains.append([x for x in hops[r][j] if x >= 0])
             ccosts.append(c)
         chains, ccosts = _edge_disjoint_order(chains, ccosts)
         plans.append(RoutePlan(table=table, total_layers=total_layers,
