@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
 Phases, each of which fails the run (non-zero exit) when it fails (they
-run in the order 1, 15, 14, 10, 2, 11-13, 3-9: the newest paths first, so
-that a fault there shows before the long routing phases):
+run in the order 1, 15, 14, 10, 2, 11-13, 3, 4, 16, 5-9: the engine paths
+first, so that a fault there shows before the long routing phases):
 
 1. build  — compiles the hand-written kernels from ``src/repro_torch/csrc``
    with nvcc for sm_90a, in parallel (one nvcc per source).
@@ -127,6 +127,30 @@ that a fault there shows before the long routing phases):
    its bound (with both the bytes and the operations figure), per call and
    on the device (the pre-pass and the scan together, and each apart),
    with the scan's grid, blocks per SM and waves.
+16. hybrid trust — the paper's Hybrid Trust Architecture: phase 3's
+   workload and weights served on a 4-shard anchor with the gossip sync
+   plane and the relay plane over 8 seekers, so K1 plans every window on
+   gossip seeker 0's ``routing_view``. Fails unless every stream emits its
+   16 tokens, K1 launched once per window that ran the DP, K3 once per
+   layer of every stage forward, the table holds 108 peers, at least one
+   gossip round ran, the relay convicted nobody (no digest mismatch,
+   quarantine or heartbeat rejection on this honest run) and seeker 0
+   reaches the anchor's version vector; logs tokens/s beside phase 3's and
+   the host ms per window of ``maybe_tick`` and ``routing_view``. A
+   gossip-path window (report, sync tick, view, DP) must run one kernel
+   and one copy each way (``torch.profiler``). The same run in float32
+   through the kernels and through the plain path must give identical
+   tokens and ServeMetrics. Then the sync plane at the paper's scale
+   (scaling testbed, N = 1000, L = 36, 16 shards, 64 relay seekers,
+   gossip and relay fanout 4): after a burst of churn every seeker
+   converges within ceil(log2 64) + 2 rounds; a synced seeker's view
+   planned by K1 equals K1's plans on the anchor's composed snapshot bit
+   for bit, with the host numpy DP's chains and its costs within
+   (L + 1) f32 roundings; ``simulate_partition`` from half the shards for
+   5 windows converges; ``simulate_byzantine`` with 3 lying relays leaves
+   every honest seeker at parity, nothing resurrected, the liars
+   quarantined. Last, ``torch_apply_report`` on the card against the
+   scalar trust rules on a 1000-peer column (1e-6).
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and the result line
@@ -763,10 +787,12 @@ def workload(vocab: int):
                        max_new_tokens=NEW_TOKENS) for n in lens]
 
 
-def serve(cfg, params, specs, router_backend="auto"):
-    """One server, every spec through submit + run_queue. Returns
+def serve(cfg, params, specs, router_backend="auto", gcfg=None,
+          prepare=None):
+    """One server (``gcfg``: disaggregated prefill on the monolithic
+    anchor unless given), every spec through submit + run_queue;
+    ``prepare(server)`` runs before the specs are submitted. Returns
     (server, served requests, wall seconds, stage forwards)."""
-    import torch
     from repro_torch.configs.base import GTRACConfig
     from repro_torch.serving.gtrac_serve import GTRACPipelineServer
     srv = GTRACPipelineServer(
@@ -775,8 +801,8 @@ def serve(cfg, params, specs, router_backend="auto"):
         # toward them, so every stream completes; the honeypot and turtle
         # replicas stay in the routing table (P = 108)
         replicas={"golden": 2, "turtle": 2, "honeypot": 2},
-        gcfg=GTRACConfig(disaggregate=True), seed=SEED, device=DEVICE,
-        router_backend=router_backend)
+        gcfg=gcfg or GTRACConfig(disaggregate=True), seed=SEED,
+        device=DEVICE, router_backend=router_backend)
     calls = [0]
 
     def counted(fn):
@@ -786,6 +812,8 @@ def serve(cfg, params, specs, router_backend="auto"):
         return wrapped
 
     srv.stage_fns = [counted(f) for f in srv.stage_fns]
+    if prepare is not None:
+        prepare(srv)
     for spec in specs:
         srv.submit(spec)
     sync()
@@ -795,14 +823,9 @@ def serve(cfg, params, specs, router_backend="auto"):
     return srv, done, time.perf_counter() - t0, calls[0]
 
 
-def phase_main(cfg, params):
-    from repro_torch.kernels import ops
-    specs = workload(cfg.vocab_size)
-    serve(cfg, params, workload(cfg.vocab_size)[:1])      # warm-up run
-    ops.reset_launch_counts()
-    srv, done, wall, forwards = serve(cfg, params, specs)
-    counts = ops.launch_counts()
-    toks = sum(r.metrics.tokens for r in done)
+def check_served(cfg, srv, done, counts, forwards):
+    """Every stream emitted its tokens in range; K1 launched once per
+    window that ran the DP and K3 once per layer of every stage forward."""
     for r in done:
         if r.metrics.tokens != NEW_TOKENS or len(r.output) != NEW_TOKENS:
             raise AssertionError(f"stream {r.request_id} emitted "
@@ -822,6 +845,18 @@ def phase_main(cfg, params):
         raise AssertionError(f"K3 launched {counts['flash_attention']} "
                              f"times for {forwards} stage forwards x "
                              f"{per_stage} layers")
+
+
+def phase_main(cfg, params):
+    from repro_torch.kernels import ops
+    specs = workload(cfg.vocab_size)
+    serve(cfg, params, workload(cfg.vocab_size)[:1])      # warm-up run
+    ops.reset_launch_counts()
+    srv, done, wall, forwards = serve(cfg, params, specs)
+    counts = ops.launch_counts()
+    toks = sum(r.metrics.tokens for r in done)
+    check_served(cfg, srv, done, counts, forwards)
+    st = srv.router.stats
     log({"main_path": {
         "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
         "vocab": cfg.vocab_size, "activation_dtype": cfg.activation_dtype,
@@ -848,6 +883,343 @@ def phase_f32_parity(cfg, params):
                                  f"plain {b.output}")
     log({"f32_parity": {"streams": len(kdone), "equal": True,
                         "kernel_path_s": kwall, "plain_path_s": pwall}})
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the Hybrid Trust Architecture (sharded anchor, gossip + relay)
+# ---------------------------------------------------------------------------
+
+#: the served hybrid configuration: a 4-shard anchor, the gossip sync plane
+#: and the relay plane over 8 seekers (routing reads seeker 0)
+HYBRID = dict(disaggregate=True, anchor_shards=4, gossip_enabled=True,
+              relay_enabled=True, gossip_seekers=8)
+#: the sync plane at the paper's scale, as benchmarks/bench_sync.py's relay
+#: lane sets it: N = 1000 peers (L = 36), 16 shards, 64 relay seekers,
+#: gossip and relay fanout 4
+SYNC_PEERS = 1000
+SYNC_SHARDS = 16
+SYNC_SEEKERS = 64
+SYNC_FANOUT = 4
+
+
+def timed_sync(srv, acc: dict) -> None:
+    """Wrap the sync plane's two request-path calls (``maybe_tick`` and
+    ``routing_view``) with host timers summing into ``acc``."""
+    def timed(fn, key):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        return wrapped
+
+    srv.gossip.maybe_tick = timed(srv.gossip.maybe_tick, "maybe_tick")
+    srv.sync_seeker.routing_view = timed(srv.sync_seeker.routing_view,
+                                         "routing_view")
+
+
+def settle(sched, seeker, now: float, bound: int) -> tuple:
+    """Gossip rounds until ``seeker`` mirrors the anchor (version vector
+    and table); returns (rounds taken, clock). Fails past ``bound``."""
+    for r in range(bound + 1):
+        if sched.converged(seeker, now):
+            return r, now
+        now += sched.period_s
+        sched.tick(now)
+    raise AssertionError(f"seeker not converged after {bound} gossip rounds")
+
+
+def gossip_window(srv, taus):
+    """One routing window on the gossip path, as ``run_queue`` runs it
+    (one trust report at the anchor, the sync tick, the seeker's
+    ``routing_view``, the batched K-best DP), with the clock one gossip
+    period on, so every call plans on a new view generation."""
+    import numpy as np
+    from repro_torch.serving.batch_router import plan_batched
+    pids = sorted(srv.bed.anchor.peers)
+    state = {"n": 0}
+
+    def window():
+        state["n"] += 1
+        srv.bed.anchor.set_trust(pids[state["n"] % len(pids)],
+                                 0.8 + 0.1 * np.sin(state["n"]))
+        srv.bed.advance(srv.gcfg.gossip_period_s)
+        srv.gossip.maybe_tick(srv.bed.now)
+        view = srv.sync_seeker.routing_view(srv.bed.now)
+        return plan_batched(view, srv.cfg.num_layers, srv.gcfg, taus,
+                            planner=srv.planner, backend="kernel",
+                            device=srv.device)
+    return window
+
+
+def phase_hybrid_serving(cfg, params, main_tps):
+    """Full-width GPT-2 Large through ``run_queue`` on the hybrid trust
+    architecture: K1 plans every window on gossip seeker 0's
+    ``routing_view``."""
+    import math
+
+    import numpy as np
+    from repro_torch.configs.base import GTRACConfig
+    from repro_torch.kernels import ops
+    gcfg = GTRACConfig(**HYBRID)
+    acc = {"maybe_tick": 0.0, "routing_view": 0.0}
+    ops.reset_launch_counts()
+    srv, done, wall, forwards = serve(
+        cfg, params, workload(cfg.vocab_size), gcfg=gcfg,
+        prepare=lambda s: timed_sync(s, acc))
+    counts = ops.launch_counts()
+    check_served(cfg, srv, done, counts, forwards)
+    st, g, rs = srv.router.stats, srv.gossip.stats, srv.gossip.relay.stats
+    anchor, seeker = srv.bed.anchor, srv.sync_seeker
+    peers = len(anchor.snapshot(srv.bed.now))
+    if peers != 108 or len(seeker.materialize(srv.bed.now)) != peers:
+        raise AssertionError(f"routing table has {peers} peers, not 108")
+    if g.rounds < 1:
+        raise AssertionError("no gossip round ran on the serving path")
+    honest = {"digest_mismatches": rs.digest_mismatches,
+              "quarantines": rs.quarantines, "hb_rejected": rs.hb_rejected}
+    if any(honest.values()):
+        raise AssertionError(f"an honest relay run convicted: {honest}")
+    at_end = seeker.version_vector == anchor.version_vector
+    rounds, _ = settle(srv.gossip, seeker, srv.bed.now,
+                       math.ceil(math.log2(gcfg.gossip_seekers)) + 2)
+    if seeker.version_vector != anchor.version_vector:
+        raise AssertionError(f"seeker 0 at {seeker.version_vector}, the "
+                             f"anchor at {anchor.version_vector}")
+    toks = sum(r.metrics.tokens for r in done)
+    sync_ms = {k: v * 1e3 / st.windows for k, v in acc.items()}
+    log({"hybrid_serving": {
+        "model": cfg.name, "anchor_shards": anchor.n_shards,
+        "seekers": gcfg.gossip_seekers, "peers": peers,
+        "streams": len(done), "tokens": toks, "wall_s": wall,
+        "tokens_per_s": toks / wall, "main_path_tokens_per_s": main_tps,
+        "windows": st.windows, "dp_windows": st.device_calls,
+        "window_cache_hits": st.window_cache_hits,
+        "stage_forwards": forwards, "launches": counts,
+        "sync_host_ms_per_window": sync_ms,
+        "sync_host_share_of_wall": sum(acc.values()) / wall,
+        "gossip": vars(g), "relay": vars(rs),
+        "stale_rounds_max": max(r.metrics.stale_rounds_max for r in done),
+        "vv_equal_at_end": at_end, "settle_rounds": rounds}})
+    # the gossip path's window: one upload per view generation
+    taus = np.linspace(0.5, 0.99, 8)
+    work = None
+    for iters in (200, 400, 800):
+        work = window_device_work(gossip_window(srv, taus),
+                                  "route_window_kbest_kernel", iters)
+        if work is not None:
+            break
+    log({"hybrid_window_device": work})
+    if work is None:
+        raise AssertionError("the profiler recorded no gossip-path window "
+                             "in 3 tries")
+    if work["kernels"] > 2 or work["h2d"] >= 1.5 or work["d2h"] >= 1.5:
+        raise AssertionError(f"a gossip-path window ran {work}: more than "
+                             "2 kernels or 1 copy each way")
+
+
+def phase_hybrid_parity(cfg, params):
+    """The hybrid configuration in f32 through the kernels and through the
+    plain path (``attn_impl="xla"``, the plain torch DP): identical tokens
+    and ServeMetrics."""
+    from repro_torch.configs.base import GTRACConfig
+    cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+    plain = dataclasses.replace(cfg32, attn_impl="xla")
+    _, kdone, kwall, _ = serve(cfg32, params, workload(cfg.vocab_size),
+                               gcfg=GTRACConfig(**HYBRID))
+    _, pdone, pwall, _ = serve(plain, params, workload(cfg.vocab_size),
+                               router_backend="torch",
+                               gcfg=GTRACConfig(**HYBRID))
+    for a, b in zip(kdone, pdone):
+        if a.output != b.output or a.metrics.tokens != NEW_TOKENS:
+            raise AssertionError(f"hybrid f32 tokens differ for stream "
+                                 f"{a.request_id}: kernels {a.output} vs "
+                                 f"plain {b.output}")
+        if dataclasses.asdict(a.metrics) != dataclasses.asdict(b.metrics):
+            raise AssertionError(f"hybrid f32 ServeMetrics differ for "
+                                 f"stream {a.request_id}")
+    log({"hybrid_f32_parity": {"streams": len(kdone), "equal": True,
+                               "kernel_path_s": kwall,
+                               "plain_path_s": pwall}})
+
+
+def phase_sync_scale():
+    """The sync plane at the paper's scale: parity of K1's plans on a
+    synced seeker with the host DP on the anchor, partition convergence
+    and Byzantine containment."""
+    import math
+
+    import numpy as np
+    from repro_torch.configs.base import GTRACConfig
+    from repro_torch.core.planner import RoutePlanner
+    from repro_torch.core.types import ExecReport, HopReport
+    from repro_torch.serving.batch_router import BatchRouter
+    from repro_torch.sim.testbed import (build_scaling_testbed,
+                                         simulate_byzantine,
+                                         simulate_partition)
+    from repro_torch.sync.gossip import make_sync_plane
+    cfg = GTRACConfig(gossip_fanout=SYNC_FANOUT, relay_enabled=True,
+                      relay_fanout=SYNC_FANOUT)
+    t0 = time.perf_counter()
+    bed = build_scaling_testbed(SYNC_PEERS, cfg=cfg, seed=SEED,
+                                shards=SYNC_SHARDS)
+    pub, seekers, sched = make_sync_plane(bed.anchor, cfg,
+                                          n_seekers=SYNC_SEEKERS,
+                                          now=bed.now)
+    boot_ms = (time.perf_counter() - t0) * 1e3
+    # a burst of churn (bench_sync's relay lane): trust reports and joins
+    rng = np.random.default_rng(SEED)
+    pids = np.array(sorted(bed.peers), np.int64)
+    for _ in range(8):
+        chain = [int(p) for p in pids[rng.integers(0, len(pids), size=4)]]
+        bed.anchor.apply_report(ExecReport(
+            True, chain, [HopReport(p, 50.0, True) for p in chain]))
+    for i in range(4):
+        bed.anchor.register(int(pids.max()) + 1 + i, 0, 3, now=bed.now,
+                            profile="golden")
+        bed.anchor.heartbeat(int(pids.max()) + 1 + i, bed.now)
+    bound = math.ceil(math.log2(SYNC_SEEKERS)) + 2
+    bytes0, rounds, tick_ms = sched.stats.anchor_bytes(), 0, []
+    while not sched.all_converged(bed.now):
+        if rounds == bound:
+            raise AssertionError(f"relay plane not converged after {bound} "
+                                 "rounds")
+        bed.advance(cfg.gossip_period_s)
+        t0 = time.perf_counter()
+        sched.tick(bed.now)
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        rounds += 1
+    anchor_bytes_per_round = (sched.stats.anchor_bytes() - bytes0) / \
+        max(1, rounds)
+    # parity: the last seeker's view through K1 on the card, against the
+    # anchor's composed snapshot through K1 and through the host numpy DP
+    seeker = seekers[-1]
+    view = seeker.routing_view(bed.now)
+    table = bed.anchor.snapshot(bed.now)
+    taus = np.linspace(0.0, 0.95, 64)
+
+    def plans(tbl, backend):
+        r = BatchRouter(planner=RoutePlanner(bed.total_layers, k_best=4),
+                        cfg=cfg, total_layers=bed.total_layers,
+                        backend=backend, device=DEVICE)
+        for i, tau in enumerate(taus):
+            r.submit(i, float(tau))
+        return r.route_window(tbl)
+
+    t0 = time.perf_counter()
+    k_view = plans(view, "kernel")
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    k_anchor, n_anchor, n_view = (plans(table, "kernel"),
+                                  plans(table, "numpy"),
+                                  plans(view, "numpy"))
+    # K1 sums f32 effective costs along chains of up to L hops, the host DP
+    # f64 ones: the same chains, the costs within (L + 1) f32 roundings
+    tol = (bed.total_layers + 1) * 2.0 ** -23
+    worst = 0.0
+    for i in range(len(taus)):
+        if k_view[i].chain_rows != k_anchor[i].chain_rows or \
+                k_view[i].costs != k_anchor[i].costs or \
+                n_view[i].chain_rows != n_anchor[i].chain_rows or \
+                n_view[i].costs != n_anchor[i].costs:
+            raise AssertionError(f"floor {taus[i]}: the synced seeker's "
+                                 "plans differ from the anchor's")
+        if k_view[i].chain_rows != n_anchor[i].chain_rows:
+            raise AssertionError(f"floor {taus[i]}: K1's chains differ "
+                                 "from the host numpy DP's")
+        for a, b in zip(k_view[i].costs, n_anchor[i].costs):
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+    if worst > tol:
+        raise AssertionError(f"K1's chain costs differ from the host DP's "
+                             f"by {worst} relative (tolerance {tol})")
+    log({"sync_parity": {
+        "peers": len(table), "shards": SYNC_SHARDS, "seekers": SYNC_SEEKERS,
+        "fanout": SYNC_FANOUT, "floors": len(taus), "boot_ms": boot_ms,
+        "rounds_to_converge": rounds, "bound": bound,
+        "tick_ms": tick_ms, "anchor_bytes_per_round": anchor_bytes_per_round,
+        "k1_window_ms": plan_ms, "feasible": sum(p.feasible
+                                                 for p in k_view.values()),
+        "chains_equal": True, "costs_max_rel_diff_vs_numpy": worst,
+        "costs_tolerance": tol}})
+    # partition: the first seeker cut off from half the shards, 5 windows
+    t0 = time.perf_counter()
+    part = simulate_partition(bed, sched, seekers[0],
+                              list(range(SYNC_SHARDS // 2)),
+                              partition_windows=5, window_s=2.0)
+    part_ms = (time.perf_counter() - t0) * 1e3
+    log({"sync_partition": {**dataclasses.asdict(part), "wall_ms": part_ms}})
+    if not part.converged:
+        raise AssertionError(f"partitioned seeker did not converge: {part}")
+    # Byzantine: F = relay_fanout - 1 lying relays
+    t0 = time.perf_counter()
+    bz = simulate_byzantine(bed, sched, seekers, n_liars=SYNC_FANOUT - 1,
+                            churn_windows=5)
+    bz_ms = (time.perf_counter() - t0) * 1e3
+    log({"sync_byzantine": {**dataclasses.asdict(bz), "wall_ms": bz_ms}})
+    if not bz.honest_converged or bz.poisoned_mirrors or \
+            bz.resurrected_seen or not bz.quarantines or \
+            not (bz.fabricated_summaries + bz.fabricated_msgs):
+        raise AssertionError(f"Byzantine relays not contained: {bz}")
+
+
+def phase_trust_twin():
+    """``torch_apply_report`` on the card against the scalar trust rules
+    on a 1000-peer column: trust within 1e-6 absolute, latency within
+    1e-6 relative (f32 arithmetic on values up to 500 ms)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import GTRACConfig
+    from repro_torch.core import trust as T
+    cfg = GTRACConfig()
+    rng = np.random.default_rng(SEED)
+    P = SYNC_PEERS
+    trust = rng.uniform(0.0, 1.0, P).astype(np.float32)
+    trust[:2] = [cfg.min_trust, cfg.max_trust]
+    latency = rng.uniform(5.0, 500.0, P).astype(np.float32)
+    chain = rng.uniform(size=P) < 0.05
+    chain[:2] = True
+    observed = np.where(chain & (rng.uniform(size=P) < 0.9),
+                        rng.uniform(1.0, 400.0, P), 0.0).astype(np.float32)
+    row = {}
+    for success in (True, False):
+        failed = np.zeros(P, bool)
+        if not success:
+            failed[np.flatnonzero(chain)[1]] = True
+        t, lat = T.torch_apply_report(trust, latency, chain, failed,
+                                      observed, success, cfg, device=DEVICE)
+        if {t.device.type, lat.device.type} != {torch.device(DEVICE).type}:
+            raise AssertionError("torch_apply_report left the card")
+        want_t = np.array([
+            T.reward(float(x), cfg) if success and c
+            else T.penalize(float(x), cfg) if not success and f else float(x)
+            for x, c, f in zip(trust, chain, failed)])
+        want_l = np.array([
+            T.ewma_latency(float(x), float(o), cfg.ewma_beta)
+            if c and o > 0 else float(x)
+            for x, o, c in zip(latency, observed, chain)])
+        err_t = float(np.abs(t.cpu().numpy() - want_t).max())
+        err_l = float((np.abs(lat.cpu().numpy() - want_l) / want_l).max())
+        row["success" if success else "failure"] = {
+            "trust_max_abs_err": err_t, "latency_max_rel_err": err_l}
+        if err_t > 1e-6 or err_l > 1e-6:
+            raise AssertionError(f"torch_apply_report off the rules: {row}")
+    log({"trust_twin": {"peers": P, **row}})
+
+
+def phase_hybrid_trust(cfg, params, main_tps):
+    """Phase 16: serving on the hybrid trust architecture, its f32 parity,
+    the sync plane at the paper's scale and the trust twin."""
+    steps = {}
+    for name, fn in (("serving", lambda: phase_hybrid_serving(cfg, params,
+                                                              main_tps)),
+                     ("f32_parity", lambda: phase_hybrid_parity(cfg,
+                                                                params)),
+                     ("sync_scale", phase_sync_scale),
+                     ("trust_twin", phase_trust_twin)):
+        t0 = time.perf_counter()
+        fn()
+        steps[name] = (time.perf_counter() - t0) * 1e3
+    log({"hybrid_trust_step_ms": steps})
 
 
 def window_device_work(fn, marker: str, iters: int = 200):
@@ -1922,6 +2294,7 @@ def main() -> int:
     phase_engine_profile(params)
     srv, counts, tps = phase_main(cfg, params)
     phase_f32_parity(cfg, params)
+    phase_hybrid_trust(cfg, params, tps)
     phase_routing(srv)
     phase_profile(cfg, params)
     _, _, k2_counts = phase_decision()

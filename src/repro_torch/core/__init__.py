@@ -1,8 +1,7 @@
 """G-TRAC core: trust protocol + risk-bounded routing (port of
 ``repro.core``).
 
-Public surface, as the reference's minus the sharded registries (a later
-slice of the port):
+Public surface, as the reference's:
     from repro_torch.core import (AnchorRegistry, SeekerCache, ChainExecutor,
                                   gtrac_route, ALGORITHMS, trust_floor_for, ...)
 """
@@ -27,7 +26,7 @@ from repro_torch.core.routing import (
     naive_route,
     sp_route,
 )
-from repro_torch.core.sharding import make_registry
+from repro_torch.core.sharding import Registry, ShardedAnchorRegistry, make_registry, stable_peer_hash
 from repro_torch.core.types import (
     ExecReport,
     HopReport,
@@ -45,5 +44,6 @@ __all__ = [
     "mr_route", "naive_route", "sp_route", "ExecReport", "HopReport",
     "PeerRecord", "PeerTable", "RegistryState", "RouteResult",
     "CompiledGraph", "RoutePlan", "RoutePlanner", "get_planner",
-    "plan_route", "make_registry",
+    "plan_route", "Registry", "ShardedAnchorRegistry", "make_registry",
+    "stable_peer_hash",
 ]

@@ -130,15 +130,28 @@ class CompiledGraph:
         (the state stays cached under the version). ``alive`` folds in
         the topology-validity mask (the CSR compile filters degenerate
         segments; the dense device path masks them). The f64 table
-        columns are rounded to f32 on the host, as the reference does."""
-        key = (getattr(table, "version", -1), id(table), str(device))
+        columns are rounded to f32 on the host, as the reference does.
+
+        The cache key is the table's ``(source_id, version)``, as in
+        ``RoutePlanner.plan_cached``: one planner sees tables from several
+        numbering sequences (a seeker's base table and its trust-adjusted
+        routing views), and equal version numbers from two sources are
+        different contents. A table outside a registry (version or source
+        -1) hits only as the same object."""
+        version = getattr(table, "version", -1)
+        source = getattr(table, "source_id", -1)
+        versioned = version >= 0 and source >= 0
+        key = (source, version, str(device)) if versioned \
+            else (-1, id(table), str(device))
         hit = self._device.get("state")
-        if hit is not None and hit[0] == key:
+        if hit is not None and hit[0] == key and (versioned
+                                                   or hit[2] is table):
             return (*hit[1], upload_tau(tau, device))
         lat, trust, alive, tau_t = upload_window_state(
             table.latency_ms, table.trust, table.alive & self.valid, tau,
             device)
-        self._device["state"] = (key, (lat, trust, alive))
+        self._device["state"] = (key, (lat, trust, alive),
+                                 None if versioned else table)
         return lat, trust, alive, tau_t
 
 

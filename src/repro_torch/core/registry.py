@@ -1,9 +1,5 @@
 """Hybrid Trust Architecture (paper §IV-A).
 
-Port of ``repro.core.registry``, copied verbatim except for
-``AnchorRegistry.state_digest``, which belongs to the digest-verified sync
-plane and joins the port with it.
-
 ``AnchorRegistry`` is the control-plane authority: it owns the global
 registry Σ_t = {(p, c_p, r_p, l̂_p)}, ingests heartbeats, and applies
 execution reports (trust/latency feedback). ``SeekerCache`` is the
@@ -35,8 +31,12 @@ Snapshot-versioning contract (consumed by core/planner.py):
   (fresh arrivals append; re-registering a present peer keeps its
   position and its seq, exactly the dict semantics), so ``export_state``
   ships a ``seq`` column that makes row order location-independent — the
-  contract the gossip sync plane (``repro.sync``) and the sharded
+  contract the gossip sync plane (``repro_torch.sync``) and the sharded
   composed snapshot (core/sharding.py) both order by.
+
+Port of ``repro.core.registry``, copied verbatim except for its imports: it
+holds no JAX, and the port keeps its own copy rather than importing the
+reference.
 """
 from __future__ import annotations
 
@@ -122,6 +122,11 @@ class AnchorRegistry:
         # module docstring) — the sync plane's ordering contract
         self._seq: Dict[int, int] = {}
         self._seq_next = 0
+        # rolling content digest, cached per version (core/digest.py):
+        # any mutation bumps version, so the cache key IS the
+        # recompute-on-mutation trigger — amortized incremental
+        self._digest: Optional[int] = None
+        self._digest_version: int = -1
 
     # -- record access -------------------------------------------------------
 
@@ -377,6 +382,30 @@ class AnchorRegistry:
             self._seq = {int(p): i for i, p in enumerate(state.peer_ids)}
         self._seq_next = max(self._seq.values(), default=-1) + 1
         self._touch(topo=True)
+
+    def state_digest(self) -> int:
+        """Seeded content digest of this registry's exported state —
+        what digest-verified gossip attests to seekers (core/digest.py:
+        covers every column ``export_state`` ships except
+        ``last_heartbeat``, seq included). Cached per ``version``; every
+        mutation bumps the version, so the digest follows mutation
+        without per-write bookkeeping."""
+        if self._digest is not None and self._digest_version == self.version:
+            return self._digest
+        from repro_torch.core.digest import state_digest
+        m = self._ensure_mirror()
+        st = RegistryState(
+            peer_ids=m.peer_ids, layer_start=m.layer_start,
+            layer_end=m.layer_end, trust=m.trust, latency_ms=m.latency_ms,
+            last_heartbeat=m.last_heartbeat,     # untouched by the digest
+            successes=m.successes, failures=m.failures,
+            profiles=m.profiles,
+            seq=np.fromiter((self._seq[int(p)] for p in m.peer_ids),
+                            np.int64, len(m.peer_ids)),
+        )
+        self._digest = state_digest(st, self.cfg.sync_digest_seed)
+        self._digest_version = self.version
+        return self._digest
 
     def export_heartbeats(self) -> np.ndarray:
         """Liveness column only, in this registry's row order — the cheap

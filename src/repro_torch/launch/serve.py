@@ -25,8 +25,10 @@ as the reference's stage functions are. Runs on ``cuda`` unless
 ``--device cpu``. Weights are random, made from ``--seed`` with the
 family's ``init`` (the reference's distributions), so the tokens are
 meaningless; the routing, trust, repair and model compute are
-the real thing. Sharded / process-backed anchors, gossip and relay planes,
-hedging and trace export join the port in later slices.
+the real thing. ``--shards`` shards the anchor, ``--gossip`` routes from a
+gossip-synced seeker cache and ``--relay`` adds the seeker→seeker relay
+plane; process-backed anchors, hedging and trace export join the port in
+later slices.
 """
 from __future__ import annotations
 
@@ -93,6 +95,69 @@ def main(argv=None):
                          "sim-seconds apart (0 = all queued up front)")
     ap.add_argument("--burst-size", type=int, default=4,
                     help="requests per arrival burst (with --burst-every)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="anchor registry shards (1 = monolithic; >1 "
+                         "partitions peers across S AnchorRegistry shards "
+                         "by stable peer-id hash with composed snapshots)")
+    ap.add_argument("--shard-by", default="peer", choices=["peer", "layer"],
+                    help="shard placement key: peer-id hash or layer-slot "
+                         "affinity")
+    ap.add_argument("--gossip", action="store_true",
+                    help="route from a gossip-synced seeker cache "
+                         "(repro_torch.sync): anchors push per-shard version "
+                         "vectors, the seeker pulls delta-encoded dirty "
+                         "shards, and routing prices staleness instead of "
+                         "reading in-process snapshots")
+    ap.add_argument("--gossip-period", type=float, default=None,
+                    metavar="S",
+                    help="gossip round period in seconds "
+                         "(default: T_gossip from GTRACConfig)")
+    ap.add_argument("--gossip-fanout", type=int, default=2,
+                    help="max dirty shards a seeker pulls per round "
+                         "(the rest defer — bandwidth cap)")
+    ap.add_argument("--gossip-stale-margin", type=float, default=0.0,
+                    metavar="M",
+                    help="trust docked per stale gossip round (an "
+                         "inflated trust floor for shards the seeker "
+                         "cannot confirm; 0 disables)")
+    ap.add_argument("--gossip-stale-decay", type=float, default=0.0,
+                    metavar="R",
+                    help="seeker-side trust discount toward init_trust, "
+                         "per second of shard staleness (0 disables)")
+    ap.add_argument("--relay", action="store_true",
+                    help="epidemic seeker->seeker relay (requires "
+                         "--gossip): the anchor pushes only to "
+                         "--gossip-fanout seed seekers per round and "
+                         "the seekers relay delta chains to each other "
+                         "— anchor cost O(fanout), convergence "
+                         "O(log N) rounds")
+    ap.add_argument("--relay-seekers", type=int, default=8, metavar="N",
+                    help="seeker caches in the relay plane (routing "
+                         "reads seeker 0; the rest carry the epidemic)")
+    ap.add_argument("--relay-fanout", type=int, default=2,
+                    help="neighbors each seeker pushes to per relay "
+                         "round (seeded k-regular random sampling)")
+    ap.add_argument("--relay-history", type=int, default=8,
+                    help="per-shard delta chain depth a seeker retains "
+                         "for forwarding (behind it: anti-entropy)")
+    ap.add_argument("--relay-seed", type=int, default=0,
+                    help="relay topology RNG seed (deterministic "
+                         "per-round neighbor sampling)")
+    ap.add_argument("--relay-blind", action="store_true",
+                    help="disable the digest handshake: push whole "
+                         "delta-chain messages to every neighbor "
+                         "instead of summary/pull (the pre-handshake "
+                         "wire protocol — more duplicate bytes)")
+    ap.add_argument("--relay-no-verify", action="store_true",
+                    help="disable digest verification, quarantine and "
+                         "hb plausibility checks on relayed payloads "
+                         "(trust every neighbor — the pre-hardening "
+                         "behavior)")
+    ap.add_argument("--relay-quarantine-rounds", type=int, default=None,
+                    metavar="R",
+                    help="relay rounds a convicted lying sender stays "
+                         "quarantined per receiver (default: "
+                         "GTRACConfig.relay_quarantine_rounds)")
     args = ap.parse_args(argv)
     if args.windowed and args.algorithm != "gtrac":
         ap.error("--windowed routes via the gtrac batch router; "
@@ -100,6 +165,11 @@ def main(argv=None):
     if args.disaggregate and not args.windowed:
         ap.error("--disaggregate splits the window-batched serving loop "
                  "(run_queue); add --windowed")
+    if args.algorithm != "gtrac" and args.gossip:
+        ap.error("--gossip serves from the trust-aware seeker cache; "
+                 "--algorithm %s does not consume it" % args.algorithm)
+    if args.relay and not args.gossip:
+        ap.error("--relay rides on the gossip sync plane; add --gossip")
 
     cfg = get_config(args.arch)
     if args.mode == "gtrac" and cfg.family != "dense":
@@ -136,11 +206,29 @@ def main(argv=None):
         return
 
     kw = {}
+    if args.gossip_period is not None:
+        kw["gossip_period_s"] = args.gossip_period
+    if args.relay_quarantine_rounds is not None:
+        kw["relay_quarantine_rounds"] = args.relay_quarantine_rounds
     if args.prefill_chunk is not None:
         kw["prefill_chunk_tokens"] = args.prefill_chunk
     if args.kv_reuse_bonus is not None:
         kw["kv_reuse_bonus"] = args.kv_reuse_bonus
-    gcfg = GTRACConfig(disaggregate=args.disaggregate, **kw)
+    gcfg = GTRACConfig(anchor_shards=args.shards, shard_by=args.shard_by,
+                       disaggregate=args.disaggregate,
+                       gossip_enabled=args.gossip,
+                       gossip_fanout=args.gossip_fanout,
+                       gossip_stale_margin=args.gossip_stale_margin,
+                       gossip_stale_decay=args.gossip_stale_decay,
+                       relay_enabled=args.relay,
+                       relay_fanout=args.relay_fanout,
+                       relay_history=args.relay_history,
+                       relay_seed=args.relay_seed,
+                       relay_handshake=not args.relay_blind,
+                       relay_verify=not args.relay_no_verify,
+                       gossip_seekers=(args.relay_seekers if args.relay
+                                       else 1),
+                       **kw)
     srv = GTRACPipelineServer(cfg, params,
                               layers_per_stage=args.layers_per_stage,
                               algorithm=args.algorithm, seed=args.seed,
@@ -169,7 +257,8 @@ def main(argv=None):
         s = srv.router.stats
         print(f"SSR: {ok}/{args.requests}  windows: {s.windows}  "
               f"batched DP calls: {s.device_calls} "
-              f"(vs {s.requests} per-token solves)")
+              f"(vs {s.requests} per-token solves)  "
+              f"anchor shards: {args.shards}")
         ls = latency_summary(done)
         chunks = sum(r.metrics.prefill_chunks for r in done)
         print(f"ttft p50/p99: {ls['ttft_p50_ms']:.0f}/"
@@ -180,6 +269,28 @@ def main(argv=None):
               f"prefill chunks: {chunks} "
               f"({'disaggregated' if args.disaggregate else 'inline'})")
         tokens = sum(r.metrics.tokens for r in done)
+        if srv.gossip is not None:
+            g = srv.gossip.stats
+            stale = max((r.metrics.stale_rounds_max for r in done),
+                        default=0)
+            print(f"gossip: {g.rounds} rounds, {g.deltas} deltas "
+                  f"({g.delta_bytes} B), {g.full_syncs} full syncs "
+                  f"({g.full_bytes} B), max staleness {stale} rounds")
+            if srv.gossip.relay is not None:
+                rs = srv.gossip.relay.stats
+                print(f"relay: {args.relay_seekers} seekers, "
+                      f"{rs.msgs} msgs ({rs.msg_bytes} B), "
+                      f"{rs.summaries} summaries ({rs.summary_bytes} B), "
+                      f"{rs.deltas_applied} deltas applied, "
+                      f"{rs.duplicates} duplicates, "
+                      f"{rs.gaps} gaps ({rs.anchor_repairs} anchor / "
+                      f"{rs.peer_full_syncs} peer repairs), "
+                      f"anchor bytes {g.anchor_bytes()} B")
+                print(f"relay hardening: {rs.digest_mismatches} digest "
+                      f"mismatches, {rs.rejected_chains} rejected "
+                      f"chains, {rs.quarantines} quarantines "
+                      f"({rs.quarantine_drops} drops), "
+                      f"{rs.hb_rejected} hb rejections")
     else:
         ok = tokens = 0
         for rid in range(args.requests):

@@ -32,10 +32,12 @@ chunked prefill, and ``generate`` under every routing policy of
 ``attn_impl="flash"``, and each window's batched K-best DP through kernel
 K1 when the router backend resolves to ``kernel``. Token tensors stay on
 the device. As in the reference, ``run_queue`` always routes through the
-batched G-TRAC router, whatever ``algorithm`` says. The reference's
-sharded and process-backed anchors, gossip sync plane and hedged executor
-join the port in later slices; asking for them raises
-``NotImplementedError``.
+batched G-TRAC router, whatever ``algorithm`` says; the anchor may be
+sharded (``anchor_shards``), and with ``gossip_enabled`` every window
+routes from the gossip seeker's staleness-bounded ``routing_view``
+(optionally behind the seeker→seeker relay plane). The reference's
+process-backed control plane and hedged executor join the port in later
+slices; asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,8 +51,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import GTRACConfig, ModelConfig
 from repro_torch.core.executor import ChainExecutor, split_reports
 from repro_torch.core.planner import RoutePlanner, plan_route
-from repro_torch.core.registry import AnchorRegistry, SeekerCache
+from repro_torch.core.registry import SeekerCache
 from repro_torch.core.routing import ALGORITHMS
+from repro_torch.core.sharding import make_registry
 from repro_torch.core.types import HopReport
 from repro_torch.distributed.pipeline import StagePartition
 from repro_torch.models.common import (apply_norm, embed_tokens, logits_head,
@@ -65,6 +68,7 @@ from repro_torch.serving.engine import (AdmissionQueue, Request,
 from repro_torch.serving.kv_cache import KVLocalityTracker
 from repro_torch.sim.peers import PROFILES, SimPeer, make_peer
 from repro_torch.sim.testbed import Testbed
+from repro_torch.sync.gossip import make_sync_plane
 
 
 # ---------------------------------------------------------------------------
@@ -124,9 +128,9 @@ def sample_token(logits, rng: np.random.Generator,
 # ---------------------------------------------------------------------------
 
 
-# The hedge / gossip / relay / control-plane fields belong to later slices
-# and keep their defaults here; they stay so a stream's metrics compare
-# field for field with the reference's.
+# The hedge and control-plane fields belong to later slices and keep their
+# defaults here; they stay so a stream's metrics compare field for field
+# with the reference's.
 @dataclass
 class ServeMetrics:
     tokens: int = 0
@@ -211,6 +215,20 @@ def latency_summary(reqs: Sequence["RoutedRequest"]) -> Dict[str, float]:
             "completion_rate": completed / n if n else -1.0}
 
 
+# ServeMetrics stream field <- obs.MetricsRegistry snapshot keys (summed).
+# A field fills only when every key is present, i.e. when the layer that
+# owns it was wired into the registry — absent layers leave the dataclass
+# defaults. (The reference's control-plane fields join with that plane.)
+_STREAM_VIEW: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+    ("relay_msgs", ("relay/msgs", "relay/summaries")),
+    ("relay_bytes", ("relay/wire_bytes",)),
+    ("relay_duplicates", ("relay/duplicates",)),
+    ("relay_digest_mismatches", ("relay/digest_mismatches",)),
+    ("relay_rejected_chains", ("relay/rejected_chains",)),
+    ("relay_quarantines", ("relay/quarantines",)),
+)
+
+
 @dataclass
 class RoutedRequest(Request):
     """Engine admission request + per-stream routed serving state."""
@@ -229,10 +247,8 @@ class RoutedRequest(Request):
 def _unported(gcfg: GTRACConfig) -> None:
     """Raise for the reference's serving features the port leaves out."""
     later = [
-        (gcfg.anchor_shards > 1, "anchor_shards > 1 (core/sharding.py)"),
         (gcfg.control_plane != "inproc",
          f"control_plane={gcfg.control_plane!r} (control_plane/)"),
-        (gcfg.gossip_enabled, "gossip_enabled (the sync plane, sync/)"),
         (gcfg.hedge_enabled, "hedge_enabled (core/hedging.py)"),
     ]
     for cond, what in later:
@@ -276,7 +292,12 @@ class GTRACPipelineServer:
                                                 layers_per_stage)
         self.stage_fns = make_stage_fns(cfg, params, self.partition)
         rng = np.random.default_rng(seed)
-        anchor = AnchorRegistry(self.gcfg)
+        # any Registry (core/sharding.py): monolithic anchor for
+        # cfg.anchor_shards=1, hash-partitioned ShardedAnchorRegistry
+        # otherwise — the planner / window router consume its composed
+        # snapshot unchanged
+        anchor = make_registry(self.gcfg, shards=self.gcfg.anchor_shards,
+                               shard_by=self.gcfg.shard_by)
         peers: Dict[int, SimPeer] = {}
         replicas = replicas or {"honeypot": 2, "turtle": 2, "golden": 2}
         pid = 0
@@ -292,6 +313,20 @@ class GTRACPipelineServer:
         self.bed = Testbed(cfg=self.gcfg, total_layers=cfg.num_layers,
                            peers=peers, anchor=anchor, rng=rng)
         self.seeker = SeekerCache(anchor, self.gcfg, now=0.0)
+        # gossip sync plane (cfg.gossip_enabled): routing reads a
+        # delta-synced shard-mirror cache (repro_torch.sync) instead of the
+        # in-process snapshot; staleness-bounded routing_view discounts
+        # trust on shards the seeker cannot confirm
+        self.gossip = None
+        self.sync_seeker = None
+        if self.gcfg.gossip_enabled:
+            # routing reads seeker 0; with cfg.relay_enabled the rest of
+            # cfg.gossip_seekers carry the epidemic relay plane (the
+            # anchor then pushes only to gossip_fanout seeds per round)
+            _, sync_seekers, self.gossip = make_sync_plane(
+                anchor, self.gcfg,
+                n_seekers=max(1, self.gcfg.gossip_seekers), now=0.0)
+            self.sync_seeker = sync_seekers[0]
         # per-server planner: compiled CSR graph + K-best plans are reused
         # across every token routed from an unchanged registry snapshot
         self.planner = RoutePlanner(cfg.num_layers,
@@ -303,9 +338,9 @@ class GTRACPipelineServer:
                                   total_layers=cfg.num_layers,
                                   backend=router_backend,
                                   device=self.device)
-        # admission owns the per-window registry sweep AND the request-id
-        # space: ids come from its monotonic counter, seeded clear of
-        # generate()'s
+        # admission owns the per-window registry sweep (per-shard fan-out
+        # when the anchor is sharded) AND the request-id space: ids come
+        # from its monotonic counter, seeded clear of generate()'s
         self.admission = AdmissionQueue(max_batch=self.gcfg.router_max_batch,
                                         registry=anchor, id_base=10_000)
         # which peers hold which stream's warm KV — prices hops by freshly
@@ -318,13 +353,21 @@ class GTRACPipelineServer:
         for i in range(self.partition.n_stages):
             self._stage_of[self.partition.segment(i)[0]] = i
         # unified telemetry plane: every layer's live stats object is a
-        # view in ONE registry (the router's, in this slice)
+        # view in ONE registry — router, gossip and relay (plus the derived
+        # wire-byte total) — and the per-stream ServeMetrics relay fields
+        # fill from its snapshot (_fill_stream_metrics)
         self.obs = MetricsRegistry()
         self.obs.expose("router", self.router.stats)
+        if self.gossip is not None:
+            self.obs.expose("gossip", self.gossip.stats)
+            if self.gossip.relay is not None:
+                rs = self.gossip.relay.stats
+                self.obs.expose("relay", rs)
+                self.obs.derived("relay/wire_bytes", rs.seeker_wire_bytes)
         # end-to-end tracing (cfg.trace_enabled): one sim-clock tracer
-        # shared by routing, serving and executors. Disabled, every site
-        # sees the shared NOOP_TRACER and pays one attribute check — no
-        # allocation, no clock read.
+        # shared by routing, serving, executors, gossip and relay.
+        # Disabled, every site sees the shared NOOP_TRACER and pays one
+        # attribute check — no allocation, no clock read.
         self.trace: Optional[TraceBuffer] = None
         self.tracer = NOOP_TRACER
         self._req_spans: Dict[int, object] = {}
@@ -333,6 +376,10 @@ class GTRACPipelineServer:
             self.tracer = Tracer(self.trace, clock=lambda: self.bed.now,
                                  domain="serve")
             self.router.tracer = self.tracer
+            if self.gossip is not None:
+                self.gossip.tracer = self.tracer
+                if self.gossip.relay is not None:
+                    self.gossip.relay.tracer = self.tracer
 
     # -- hop adapter -----------------------------------------------------------
 
@@ -374,10 +421,15 @@ class GTRACPipelineServer:
 
     def _sync_and_view(self):
         """Background sync tick + the table routing consumes this window:
-        the in-process snapshot cache (the gossip seeker's view joins the
-        port with the sync plane). Never a synchronous registry read on
-        the request path."""
-        self.seeker.maybe_sync(self.bed.now)
+        the gossip seeker's staleness-bounded ``routing_view`` when the
+        sync plane is on, the classic in-process snapshot cache
+        otherwise. Never a synchronous registry read on the request path
+        either way."""
+        now = self.bed.now
+        if self.gossip is not None:
+            self.gossip.maybe_tick(now)
+            return self.sync_seeker.routing_view(now)
+        self.seeker.maybe_sync(now)
         return self.seeker.view()
 
     # -- serving ---------------------------------------------------------------
@@ -452,7 +504,17 @@ class GTRACPipelineServer:
         if traced:
             tr.end(rsp, t1=self.bed.now, ttft_ms=metrics.ttft_ms,
                    stale_rounds_max=metrics.stale_rounds_max)
+        self._fill_stream_metrics(metrics)
         return tokens[0, len(prompt):].cpu().numpy().astype(np.int32), metrics
+
+    def _fill_stream_metrics(self, metrics: ServeMetrics) -> None:
+        """Surface cumulative relay-plane totals on a stream's metrics from
+        ONE registry snapshot (``_STREAM_VIEW``). Fields whose owning
+        layer is absent keep their defaults."""
+        snap = self.obs.snapshot()
+        for name, keys in _STREAM_VIEW:
+            if all(k in snap for k in keys):
+                setattr(metrics, name, sum(snap[k] for k in keys))
 
     def _token_tensor(self, prompt) -> torch.Tensor:
         """(1, S) int64 token tensor on the server's device."""
@@ -654,9 +716,13 @@ class GTRACPipelineServer:
                    if traced else None)
             table = self._sync_and_view()
             self.kv.validate(table, gcfg.trust_floor)
+            stale_rounds = (int(self.sync_seeker.staleness_rounds(
+                self.bed.now).max()) if self.sync_seeker is not None else 0)
             for req in active + [r for r, _ in chunks]:
                 self.router.submit(req.request_id, req.tau,
                                    warm_ids=self.kv.warm_ids(req.request_id))
+                req.metrics.stale_rounds_max = max(
+                    req.metrics.stale_rounds_max, stale_rounds)
             plans = self.router.route_window(table)   # ONE batched DP
             # -- prefill chunk launches (asynchronous: charge busy_until,
             #    the decode window below does not wait for them) --------
@@ -775,4 +841,6 @@ class GTRACPipelineServer:
                     self._finish_stream(req)
             active = [r for r in active if not r.done]
             prefill = [r for r in prefill if not r.done]
+        for req in served:
+            self._fill_stream_metrics(req.metrics)
         return served

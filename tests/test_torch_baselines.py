@@ -27,7 +27,7 @@ from repro_torch.configs.base import GTRACConfig as TGTRACConfig
 from repro_torch.core import risk as trisk
 from repro_torch.core import routing as trouting
 from repro_torch.core.registry import AnchorRegistry as TAnchorRegistry
-from repro_torch.core.sharding import make_registry
+from repro_torch.core.sharding import ShardedAnchorRegistry, make_registry
 from repro_torch.sim import testbed as ttestbed
 from repro_torch.sim import workload as tworkload
 
@@ -207,14 +207,18 @@ def test_wilson_ci_edges():
 
 
 def test_make_registry_monolithic_only():
+    """The monolithic anchor for one shard, the sharded registry above it;
+    only the process-backed control plane still raises."""
     cfg = TGTRACConfig()
     assert isinstance(make_registry(cfg), TAnchorRegistry)
     assert isinstance(make_registry(cfg, shards=1, backend="inproc"),
                       TAnchorRegistry)
-    for kw in ({"shards": 4}, {"backend": "procs"}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            make_registry(cfg, **kw)
+    reg = make_registry(cfg, shards=4)
+    assert isinstance(reg, ShardedAnchorRegistry) and reg.n_shards == 4
+    with pytest.raises(NotImplementedError, match="later slice"):
+        make_registry(cfg, backend="procs")
     with pytest.raises(ValueError):
         make_registry(cfg, backend="grpc")
-    with pytest.raises(NotImplementedError):
-        ttestbed.build_scaling_testbed(16, shards=4)
+    bed = ttestbed.build_scaling_testbed(16, shards=4)
+    assert isinstance(bed.anchor, ShardedAnchorRegistry)
+    assert len(bed.anchor.snapshot(bed.now)) == len(bed.peers)

@@ -186,9 +186,7 @@ def test_traced_run_queue_matches_reference(models):
 def test_later_slice_features_raise(models):
     tparams = models[2]
     tcfg = tget_config("gpt2-large").reduced(**REDUCED)
-    for kw, algo in (({"anchor_shards": 2}, "gtrac"),
-                     ({"gossip_enabled": True}, "gtrac"),
-                     ({"hedge_enabled": True}, "gtrac"),
+    for kw, algo in (({"hedge_enabled": True}, "gtrac"),
                      ({"control_plane": "procs"}, "gtrac")):
         with pytest.raises(NotImplementedError, match="later slice"):
             TGTRACPipelineServer(tcfg, tparams, layers_per_stage=2,
