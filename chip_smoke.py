@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
 Phases, each of which fails the run (non-zero exit) when it fails (they
-run in the order 1, 15, 14, 10, 2, 11-13, 3, 4, 16, 5-9: the engine paths
+run in the order 1, 15, 14, 10, 2, 11-13, 3, 4, 16, 17, 5-9: the engine paths
 first, so that a fault there shows before the long routing phases):
 
 1. build  — compiles the hand-written kernels from ``src/repro_torch/csrc``
@@ -151,6 +151,27 @@ first, so that a fault there shows before the long routing phases):
    every honest seeker at parity, nothing resurrected, the liars
    quarantined. Last, ``torch_apply_report`` on the card against the
    scalar trust rules on a 1000-peer column (1e-6).
+17. edge control — phase 3's workload and weights served with hedging,
+   the process-backed 4-shard anchor (one spawned worker process per
+   shard behind the RPC control plane) and tracing. Fails unless every
+   stream emits its 16 tokens, K1 launched once per DP window, K3 once
+   per layer of every stage forward, primary and hedge forwards apart,
+   the hedges fired equal the CPU rehearsal's count, the run had no RPC
+   timeout, retry, degraded window or dropped write, and the composed
+   state's digest (and each shard's) equals that of an in-process
+   ``ShardedAnchorRegistry`` fed the composer's recorded writes; logs
+   tokens/s beside phase 3's, RPCs and the composer's host ms per window,
+   the workers' start method and start-up ms. The same run in float32
+   through the kernels and through the plain path must give identical
+   tokens and ServeMetrics (hedge and control-plane fields included). The
+   run's trace, exported as JSONL and Chrome trace events to a temporary
+   directory, must validate with no error, and each request's TTFT
+   components must sum to its TTFT within 1e-6 ms. Last, a worker drill:
+   one shard's worker killed mid-run with its peers
+   (``crash_anchor_shard(kill_worker=True)``) and respawned; every stream
+   ends with the rehearsed tokens, one restart, at least one degraded
+   window, and the composer's mirrors equal the live workers' exports.
+   Every server is closed and no shard worker outlives the phase.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and the result line
@@ -1220,6 +1241,382 @@ def phase_hybrid_trust(cfg, params, main_tps):
         fn()
         steps[name] = (time.perf_counter() - t0) * 1e3
     log({"hybrid_trust_step_ms": steps})
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: hedged serving, the process-backed control plane, trace export
+# ---------------------------------------------------------------------------
+
+#: the served configuration: hedged executors, a 4-shard anchor of worker
+#: processes behind the RPC control plane, and tracing
+EDGE = dict(disaggregate=True, anchor_shards=4, control_plane="procs",
+            hedge_enabled=True, trace_enabled=True)
+#: hedges fired on phase 17's run, from the CPU rehearsal of the phase at a
+#: tiny width (the simulation draws no value that depends on the width)
+EDGE_HEDGES_FIRED = 140
+#: the worker drill: the shard whose worker is killed, at which window
+#: (all four streams decoding), and the tokens each stream emits through
+#: it, from the same rehearsal: ``crash_anchor_shard`` crashes the shard's
+#: peers with its worker, both golden replicas of stage 16 among them, so
+#: the three short streams lose their chain there (primary and repair
+#: dead) and end after 7 tokens, as the reference's one-shot repair rules
+EDGE_CHAOS_SHARD = 1
+EDGE_CHAOS_WINDOW = 8
+EDGE_CHAOS_TOKENS = (7, 7, 7, 16)
+#: the composer's public methods: the writes (replayed on the in-process
+#: twin) and the reads, timed together as the composer's host time
+CP_WRITES = ("register", "deregister", "heartbeat", "heartbeat_all",
+             "apply_report", "sweep", "set_trust", "reset_trust")
+CP_READS = ("snapshot", "sync", "routing_view")
+
+
+class ComposerProbe:
+    """For one serving run, wraps ``ProcessShardedRegistry``'s public
+    methods and ``RpcChannel.post`` at class level: each composer keeps the
+    script of its writes in call order (``probe_script``, what the twin
+    replays), and while ``timing`` is on the host seconds spent in its
+    outermost public calls (``probe_s``) and the RPCs posted (``rpcs``)
+    are summed. Restores the classes on exit."""
+
+    def __init__(self):
+        from repro_torch.control_plane.registry import ProcessShardedRegistry
+        from repro_torch.control_plane.rpc import RpcChannel
+        self.cls, self.channel = ProcessShardedRegistry, RpcChannel
+        self.timing = False
+        self.rpcs = 0
+        self.saved = {}
+
+    def __enter__(self):
+        probe = self
+
+        def wrap(name, fn):
+            def probed(reg, *a, **kw):
+                if name in CP_WRITES:
+                    reg.__dict__.setdefault("probe_script", []).append(
+                        (name, a, kw))
+                outer = not reg.__dict__.get("probe_depth")
+                reg.probe_depth = reg.__dict__.get("probe_depth", 0) + 1
+                t0 = time.perf_counter()
+                try:
+                    return fn(reg, *a, **kw)
+                finally:
+                    reg.probe_depth -= 1
+                    if outer and probe.timing:
+                        reg.probe_s = (reg.__dict__.get("probe_s", 0.0)
+                                       + time.perf_counter() - t0)
+            return probed
+
+        def counted_post(fn):
+            def post(ch, *a, **kw):
+                probe.rpcs += probe.timing
+                return fn(ch, *a, **kw)
+            return post
+
+        for name in CP_WRITES + CP_READS:
+            self.saved[(self.cls, name)] = getattr(self.cls, name)
+            setattr(self.cls, name, wrap(name, getattr(self.cls, name)))
+        self.saved[(self.channel, "post")] = self.channel.post
+        self.channel.post = counted_post(self.channel.post)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, name), fn in self.saved.items():
+            setattr(cls, name, fn)
+
+
+def shard_workers() -> list:
+    import multiprocessing as mp
+    return [p for p in mp.active_children()
+            if p.name.startswith("anchor-shard-")]
+
+
+def close_servers(servers) -> None:
+    """Close every server (its shard workers) and fail if a worker
+    outlives the close."""
+    for srv in servers:
+        srv.close()
+    for p in shard_workers():
+        p.join(timeout=10)
+    left = shard_workers()
+    if left:
+        raise AssertionError(f"shard workers left running: {left}")
+
+
+def tally_forwards(srv, tally: dict) -> None:
+    """Count the stage forwards of every submitted stream's executor by
+    kind: a hop call made while the executor's hop count has not moved is
+    the hedge of the call before it; a call that does not fail runs one
+    real stage forward."""
+    submit = srv.submit
+
+    def submitted(spec):
+        req = submit(spec)
+        ex, last = req.executor, [-1]
+        hop = ex.hop_fn
+
+        def counted(pid, k, payload):
+            hedge = ex.stats.hops == last[0]
+            last[0] = ex.stats.hops
+            out = hop(pid, k, payload)
+            tally["hedge" if hedge else "primary"] += int(bool(out[2]))
+            return out
+        ex.hop_fn = counted
+        return req
+    srv.submit = submitted
+
+
+def twin_digests(cp):
+    """Replay the composer's recorded writes on an in-process
+    ``ShardedAnchorRegistry``; return its per-shard digests and the
+    digest of its composed state."""
+    from repro_torch.core.digest import state_digest
+    from repro_torch.core.sharding import ShardedAnchorRegistry
+    twin = ShardedAnchorRegistry(cp.cfg, n_shards=cp.n_shards,
+                                 shard_by=cp.shard_by)
+    for name, a, kw in cp.probe_script:
+        getattr(twin, name)(*a, **kw)
+    return twin.digest_vector(), state_digest(twin.export_state(),
+                                              cp.cfg.sync_digest_seed)
+
+
+def composed_digest(cp) -> int:
+    """Digest of the composer's composed state (every shard mirror's rows
+    with their global seq), as the twin's ``export_state`` is digested:
+    the XOR of the shard mirrors' row hashes."""
+    from repro_torch.core import digest as D
+    seed = cp.cfg.sync_digest_seed
+    out = D.empty_digest(seed)
+    for s in range(cp.n_shards):
+        out ^= D.xor_rows(cp.export_shard_state(s), seed)
+    return out
+
+
+def check_edge_counts(cfg, srv, done, counts, forwards, tally):
+    """Phase 3's gates on the hedged path: every stream's tokens, K1 once
+    per DP window, K3 once per layer of every stage forward, primary and
+    hedge forwards together (the hedges fired as rehearsed on the CPU)."""
+    check_served(cfg, srv, done, counts, forwards)
+    per_stage = cfg.num_layers // srv.partition.n_stages
+    if tally["primary"] + tally["hedge"] != forwards or \
+            counts["flash_attention"] != (tally["primary"]
+                                          + tally["hedge"]) * per_stage:
+        raise AssertionError(f"K3 launched {counts['flash_attention']} "
+                             f"times for {tally} forwards x {per_stage}")
+    fired = sum(r.metrics.hedges_fired for r in done)
+    if EDGE_HEDGES_FIRED is not None and fired != EDGE_HEDGES_FIRED:
+        raise AssertionError(f"{fired} hedges fired, the rehearsal fired "
+                             f"{EDGE_HEDGES_FIRED}")
+    if not tally["hedge"]:
+        raise AssertionError("no hedge ran a stage forward")
+
+
+def phase_hedged_serving(cfg, params, main_tps, servers):
+    """Full-width GPT-2 Large through ``run_queue`` with hedging, the
+    process-backed 4-shard anchor and tracing: K1 and K3 on the card,
+    every shard a spawned worker behind the RPC control plane."""
+    from repro_torch.configs.base import GTRACConfig
+    from repro_torch.kernels import ops
+    tally = {"primary": 0, "hedge": 0}
+
+    def prepare(s):
+        servers.append(s)
+        tally_forwards(s, tally)
+        probe.timing = True
+
+    with ComposerProbe() as probe:
+        ops.reset_launch_counts()
+        srv, done, wall, forwards = serve(
+            cfg, params, workload(cfg.vocab_size),
+            gcfg=GTRACConfig(**EDGE), prepare=prepare)
+        counts = ops.launch_counts()
+        probe.timing = False
+    cp, st = srv._cp, srv.router.stats
+    check_edge_counts(cfg, srv, done, counts, forwards, tally)
+    h = cp.health
+    if h.rpc_timeouts or h.degraded_windows or h.dropped_writes or \
+            h.rpc_retries or any(r.metrics.shard_timeouts for r in done):
+        raise AssertionError(f"an honest control-plane run: {h}")
+    cp.sync(srv.bed.now)
+    twin_vec, twin_all = twin_digests(cp)
+    mine = composed_digest(cp)
+    if cp.digest_vector() != twin_vec or mine != twin_all:
+        raise AssertionError(f"composed digest {mine:#x} (shards "
+                             f"{cp.digest_vector()}), in-process twin "
+                             f"{twin_all:#x} ({twin_vec})")
+    toks = sum(r.metrics.tokens for r in done)
+    starts = [ch.transport.startup_ms for ch in cp.channels]
+    log({"hedged_serving": {
+        "model": cfg.name, "anchor_shards": cp.n_shards,
+        "streams": len(done), "tokens": toks, "wall_s": wall,
+        "tokens_per_s": toks / wall, "main_path_tokens_per_s": main_tps,
+        "windows": st.windows, "dp_windows": st.device_calls,
+        "stage_forwards": forwards, "primary_forwards": tally["primary"],
+        "hedge_forwards": tally["hedge"],
+        "hedges_fired": sum(r.metrics.hedges_fired for r in done),
+        "hedges_won": sum(r.metrics.hedges_won for r in done),
+        "launches": counts, "rpcs": probe.rpcs,
+        "rpcs_per_window": probe.rpcs / st.windows,
+        "composer_host_ms_per_window": cp.probe_s * 1e3 / st.windows,
+        "composer_share_of_wall": cp.probe_s / wall,
+        "worker_start_method": cp.channels[0].transport.start_method,
+        "worker_startup_ms": starts, "health": dataclasses.asdict(h),
+        "composed_digest": f"{mine:#018x}", "twin_digest_equal": True}})
+    return srv, done
+
+
+def phase_hedged_parity(cfg, params, servers):
+    """The phase's configuration in f32 through the kernels and through
+    the plain path: identical tokens and ServeMetrics, the hedge and
+    control-plane fields included."""
+    from repro_torch.configs.base import GTRACConfig
+    cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+    plain = dataclasses.replace(cfg32, attn_impl="xla")
+    _, kdone, kwall, _ = serve(cfg32, params, workload(cfg.vocab_size),
+                               gcfg=GTRACConfig(**EDGE),
+                               prepare=servers.append)
+    _, pdone, pwall, _ = serve(plain, params, workload(cfg.vocab_size),
+                               router_backend="torch",
+                               gcfg=GTRACConfig(**EDGE),
+                               prepare=servers.append)
+    for a, b in zip(kdone, pdone):
+        if a.output != b.output or a.metrics.tokens != NEW_TOKENS:
+            raise AssertionError(f"hedged f32 tokens differ for stream "
+                                 f"{a.request_id}: kernels {a.output} vs "
+                                 f"plain {b.output}")
+        if dataclasses.asdict(a.metrics) != dataclasses.asdict(b.metrics):
+            raise AssertionError(f"hedged f32 ServeMetrics differ for "
+                                 f"stream {a.request_id}")
+    log({"hedged_f32_parity": {
+        "streams": len(kdone), "equal": True,
+        "hedges_fired": sum(r.metrics.hedges_fired for r in kdone),
+        "kernel_path_s": kwall, "plain_path_s": pwall}})
+
+
+def phase_trace_export(srv, done):
+    """The hedged run's trace, exported as JSONL and Chrome trace events
+    into a temporary directory: the schema check finds no error, and each
+    request's TTFT components sum to its measured TTFT within 1e-6 ms."""
+    import tempfile
+    from pathlib import Path as P
+
+    from repro_torch.obs.export import (export_chrome, export_jsonl,
+                                        validate_jsonl)
+    from repro_torch.obs.report import format_report, ttft_breakdown
+    with tempfile.TemporaryDirectory() as tmp:
+        jpath, cpath = str(P(tmp) / "trace.jsonl"), str(P(tmp) / "trace.json")
+        n = export_jsonl(srv.trace, jpath)
+        nc = export_chrome(srv.trace, cpath)
+        count, errors = validate_jsonl(jpath)
+        events = len(json.loads(P(cpath).read_text())["traceEvents"])
+        sizes = {"jsonl_bytes": P(jpath).stat().st_size,
+                 "chrome_bytes": P(cpath).stat().st_size}
+    if errors or count != n or nc != n or n != len(srv.trace):
+        raise AssertionError(f"trace export: {count} of {n} spans, "
+                             f"errors {errors[:5]}")
+    rows = ttft_breakdown(srv.trace)
+    worst = max(abs(r["ttft_sum_ms"] - r["measured_ttft_ms"]) for r in rows)
+    by_rid = {r.request_id: r.metrics.ttft_ms for r in done}
+    if len(rows) != len(done) or worst > 1e-6 or \
+            any(r["measured_ttft_ms"] != by_rid[r["rid"]] for r in rows):
+        raise AssertionError(f"TTFT identity off by {worst} ms: {rows}")
+    domains = {}
+    for sp in srv.trace.spans:
+        domains[sp.domain] = domains.get(sp.domain, 0) + 1
+    log({"trace_export": {"spans": n, "dropped": srv.trace.dropped,
+                          "by_domain": domains, "chrome_events": events,
+                          **sizes, "schema_errors": 0,
+                          "ttft_identity_max_err_ms": worst}})
+    log(format_report(srv.trace))
+
+
+def phase_worker_chaos(cfg, params, servers):
+    """The phase's configuration served while one shard's worker is
+    SIGKILLed mid-run (``crash_anchor_shard(kill_worker=True)``, which also
+    crashes the peers homed there) and respawned once a sync has degraded
+    the shard: every stream ends, its first token emitted, with the
+    tokens the rehearsal gave (``EDGE_CHAOS_TOKENS``), and after the
+    restore the composer's shard mirrors equal the live workers'
+    exports."""
+    import numpy as np
+    from repro_torch.configs.base import GTRACConfig
+    drill = {"window": 0, "killed": None, "restart_ms": None}
+
+    def prepare(s):
+        servers.append(s)
+        view = s._sync_and_view
+
+        def drilled():
+            drill["window"] += 1
+            if drill["window"] == EDGE_CHAOS_WINDOW:
+                drill["killed"] = s.bed.crash_anchor_shard(
+                    EDGE_CHAOS_SHARD, kill_worker=True)
+            table = view()
+            if drill["killed"] is not None and drill["restart_ms"] is None \
+                    and s._cp.health.degraded_windows:
+                t0 = time.perf_counter()
+                s._cp.restart_worker(EDGE_CHAOS_SHARD)
+                drill["restart_ms"] = (time.perf_counter() - t0) * 1e3
+                drill["restart_window"] = drill["window"]
+            return table
+        s._sync_and_view = drilled
+
+    srv, done, wall, _ = serve(cfg, params, workload(cfg.vocab_size),
+                               gcfg=GTRACConfig(**EDGE), prepare=prepare)
+    cp = srv._cp
+    h = cp.health
+    tokens = tuple(r.metrics.tokens for r in done)
+    if tokens != EDGE_CHAOS_TOKENS or not all(
+            r.done and r.metrics.ttft_ms >= 0 for r in done):
+        raise AssertionError(f"streams through the worker drill emitted "
+                             f"{tokens} tokens, the rehearsal "
+                             f"{EDGE_CHAOS_TOKENS}")
+    if h.worker_restarts != 1 or h.degraded_windows < 1 or \
+            drill["restart_ms"] is None:
+        raise AssertionError(f"worker drill: {h}, {drill}")
+    cp.sync(srv.bed.now)
+    for s in range(cp.n_shards):
+        mirror, live = (cp.export_shard_state(s),
+                        cp.channels[s].request("export"))
+        for f in dataclasses.fields(live):
+            a, b = getattr(mirror, f.name), getattr(live, f.name)
+            same = (a == b) if isinstance(b, list) else \
+                np.array_equal(np.asarray(a), np.asarray(b))
+            if not same:
+                raise AssertionError(f"shard {s}: mirror {f.name} differs "
+                                     "from the live worker's export")
+    log({"worker_chaos": {
+        "shard": EDGE_CHAOS_SHARD, "killed_at_window": EDGE_CHAOS_WINDOW,
+        "restarted_at_window": drill["restart_window"],
+        "crashed_peers": len(drill["killed"]),
+        "restart_ms": drill["restart_ms"],
+        "new_worker_startup_ms":
+            cp.channels[EDGE_CHAOS_SHARD].transport.startup_ms,
+        "streams": len(done), "tokens_per_stream": tokens,
+        "wall_s": wall, "failures": sum(r.metrics.failures for r in done),
+        "health": dataclasses.asdict(h), "mirrors_equal_workers": True}})
+
+
+def phase_edge_control(cfg, params, main_tps):
+    """Phase 17: hedged serving on the process-backed anchor with tracing,
+    its f32 parity, the trace export and the worker drill. Every server
+    is closed, and no shard worker outlives the phase."""
+    steps, servers = {}, []
+    t0 = time.perf_counter()
+    try:
+        srv, done = phase_hedged_serving(cfg, params, main_tps, servers)
+        steps["hedged_serving"] = (time.perf_counter() - t0) * 1e3
+        for name, fn in (("f32_parity",
+                          lambda: phase_hedged_parity(cfg, params, servers)),
+                         ("trace_export",
+                          lambda: phase_trace_export(srv, done)),
+                         ("worker_chaos",
+                          lambda: phase_worker_chaos(cfg, params, servers))):
+            t0 = time.perf_counter()
+            fn()
+            steps[name] = (time.perf_counter() - t0) * 1e3
+    finally:
+        close_servers(servers)
+    log({"edge_control_step_ms": steps, "shard_workers_left": 0})
 
 
 def window_device_work(fn, marker: str, iters: int = 200):
@@ -2295,6 +2692,7 @@ def main() -> int:
     srv, counts, tps = phase_main(cfg, params)
     phase_f32_parity(cfg, params)
     phase_hybrid_trust(cfg, params, tps)
+    phase_edge_control(cfg, params, tps)
     phase_routing(srv)
     phase_profile(cfg, params)
     _, _, k2_counts = phase_decision()

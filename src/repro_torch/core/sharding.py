@@ -40,9 +40,7 @@ same register / heartbeat / apply_report / sweep / snapshot surface:
 returns the plain ``AnchorRegistry`` for ``shards <= 1`` (zero overhead
 on the monolithic path) and a ``ShardedAnchorRegistry`` otherwise.
 
-Port of ``repro.core.sharding``, copied verbatim except for its imports
-and for ``backend="procs"``, which raises: the process-backed control
-plane joins the port in a later slice.
+Port of ``repro.core.sharding``, copied verbatim except for its imports.
 """
 from __future__ import annotations
 
@@ -120,17 +118,18 @@ def make_registry(cfg: GTRACConfig, shards: int = 1,
     """Factory: monolithic anchor for ``shards <= 1``, sharded otherwise.
 
     ``backend`` (default: ``cfg.control_plane``) selects where the shards
-    live: ``"inproc"`` returns the in-process registries above. The
-    reference's ``"procs"`` backend (every shard in its own worker process
-    behind an RPC control plane) joins the port in a later slice and
-    raises ``NotImplementedError``; any other name raises ``ValueError``."""
+    live: ``"inproc"`` returns the in-process registries above;
+    ``"procs"`` returns a ``ProcessShardedRegistry`` — every shard in its
+    own worker process behind the RPC control plane
+    (src/repro_torch/control_plane/), same surface, composed snapshots
+    bit-identical. Imported lazily so the in-process path never pays for
+    multiprocessing machinery."""
     if backend is None:
         backend = getattr(cfg, "control_plane", "inproc")
     if backend == "procs":
-        raise NotImplementedError(
-            f"make_registry(shards={shards}, backend='procs'): the "
-            "process-backed control plane joins repro_torch in a later "
-            "slice of the port")
+        from repro_torch.control_plane.registry import ProcessShardedRegistry
+        return ProcessShardedRegistry(cfg, n_shards=max(1, int(shards)),
+                                      shard_by=shard_by)
     if backend != "inproc":
         raise ValueError(f"control_plane backend must be 'inproc' or "
                          f"'procs', got {backend!r}")

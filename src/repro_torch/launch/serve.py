@@ -27,8 +27,12 @@ family's ``init`` (the reference's distributions), so the tokens are
 meaningless; the routing, trust, repair and model compute are
 the real thing. ``--shards`` shards the anchor, ``--gossip`` routes from a
 gossip-synced seeker cache and ``--relay`` adds the seeker→seeker relay
-plane; process-backed anchors, hedging and trace export join the port in
-later slices.
+plane; ``--control-plane procs`` runs every anchor shard in its own worker
+process behind the RPC control plane (``--cp-timeout``, ``--cp-retries``,
+``--cp-backoff``), ``--hedged`` fires a backup hop (a real stage forward)
+when a primary is slow, and ``--trace PATH`` writes the span trace
+(``--trace-format jsonl`` or ``chrome``) and prints the critical-path
+report.
 """
 from __future__ import annotations
 
@@ -102,6 +106,26 @@ def main(argv=None):
     ap.add_argument("--shard-by", default="peer", choices=["peer", "layer"],
                     help="shard placement key: peer-id hash or layer-slot "
                          "affinity")
+    ap.add_argument("--control-plane", default="inproc",
+                    choices=["inproc", "procs"],
+                    help="anchor shard backend: in-process registries, or "
+                         "one worker PROCESS per shard behind the RPC "
+                         "control plane (repro_torch.control_plane) — "
+                         "deadlines, bounded retries, degraded-shard "
+                         "serving")
+    ap.add_argument("--cp-timeout", type=float, default=None, metavar="S",
+                    help="per-attempt composer->worker RPC deadline in "
+                         "seconds (default: GTRACConfig.cp_rpc_timeout_s)")
+    ap.add_argument("--cp-retries", type=int, default=None, metavar="N",
+                    help="RPC retries after the first deadline expiry "
+                         "(default: GTRACConfig.cp_rpc_retries)")
+    ap.add_argument("--cp-backoff", type=float, default=None, metavar="S",
+                    help="base backoff before the first retry; doubles "
+                         "per attempt (default: "
+                         "GTRACConfig.cp_backoff_base_s)")
+    ap.add_argument("--hedged", action="store_true",
+                    help="hedged window serving: fire a backup hop when a "
+                         "primary exceeds its latency-quantile trigger")
     ap.add_argument("--gossip", action="store_true",
                     help="route from a gossip-synced seeker cache "
                          "(repro_torch.sync): anchors push per-shard version "
@@ -158,10 +182,23 @@ def main(argv=None):
                     help="relay rounds a convicted lying sender stays "
                          "quarantined per receiver (default: "
                          "GTRACConfig.relay_quarantine_rounds)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="gtrac mode: enable end-to-end tracing "
+                         "(repro_torch.obs), write the span trace to PATH "
+                         "and print the per-request critical-path report")
+    ap.add_argument("--trace-format", default="jsonl",
+                    choices=["jsonl", "chrome"],
+                    help="trace file format: JSONL span records, or a "
+                         "Chrome trace-event file for chrome://tracing "
+                         "/ Perfetto (default: jsonl)")
     args = ap.parse_args(argv)
     if args.windowed and args.algorithm != "gtrac":
         ap.error("--windowed routes via the gtrac batch router; "
                  "--algorithm %s is only available per-token" % args.algorithm)
+    if args.hedged and not args.windowed:
+        ap.error("--hedged is a window-serving feature (run_queue); "
+                 "add --windowed — the per-token generate() path does "
+                 "not hedge")
     if args.disaggregate and not args.windowed:
         ap.error("--disaggregate splits the window-batched serving loop "
                  "(run_queue); add --windowed")
@@ -210,12 +247,20 @@ def main(argv=None):
         kw["gossip_period_s"] = args.gossip_period
     if args.relay_quarantine_rounds is not None:
         kw["relay_quarantine_rounds"] = args.relay_quarantine_rounds
+    if args.cp_timeout is not None:
+        kw["cp_rpc_timeout_s"] = args.cp_timeout
+    if args.cp_retries is not None:
+        kw["cp_rpc_retries"] = args.cp_retries
+    if args.cp_backoff is not None:
+        kw["cp_backoff_base_s"] = args.cp_backoff
     if args.prefill_chunk is not None:
         kw["prefill_chunk_tokens"] = args.prefill_chunk
     if args.kv_reuse_bonus is not None:
         kw["kv_reuse_bonus"] = args.kv_reuse_bonus
     gcfg = GTRACConfig(anchor_shards=args.shards, shard_by=args.shard_by,
+                       control_plane=args.control_plane,
                        disaggregate=args.disaggregate,
+                       hedge_enabled=args.hedged,
                        gossip_enabled=args.gossip,
                        gossip_fanout=args.gossip_fanout,
                        gossip_stale_margin=args.gossip_stale_margin,
@@ -228,11 +273,24 @@ def main(argv=None):
                        relay_verify=not args.relay_no_verify,
                        gossip_seekers=(args.relay_seekers if args.relay
                                        else 1),
+                       trace_enabled=args.trace is not None,
                        **kw)
     srv = GTRACPipelineServer(cfg, params,
                               layers_per_stage=args.layers_per_stage,
                               algorithm=args.algorithm, seed=args.seed,
                               gcfg=gcfg, device=device)
+    try:
+        _serve(srv, args, cfg, rng, device)
+        _report_control_plane(srv)
+        _dump_trace(srv, args)
+    finally:
+        srv.close()
+
+
+def _serve(srv, args, cfg, rng, device) -> None:
+    """Serve the workload (``run_queue`` with ``--windowed``, else
+    ``generate`` per request) and print the reference's summary lines
+    beside the device's tokens per second and kernel launches."""
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     if args.windowed:
@@ -255,10 +313,11 @@ def main(argv=None):
                   f"{met.repairs} repairs, {met.failures} failures "
                   f"-> {r.output}")
         s = srv.router.stats
+        hedges = sum(r.metrics.hedges_fired for r in done)
         print(f"SSR: {ok}/{args.requests}  windows: {s.windows}  "
               f"batched DP calls: {s.device_calls} "
               f"(vs {s.requests} per-token solves)  "
-              f"anchor shards: {args.shards}")
+              f"anchor shards: {args.shards}  hedges fired: {hedges}")
         ls = latency_summary(done)
         chunks = sum(r.metrics.prefill_chunks for r in done)
         print(f"ttft p50/p99: {ls['ttft_p50_ms']:.0f}/"
@@ -268,6 +327,9 @@ def main(argv=None):
               f"kv warm-hit rate: {ls['warm_hit_rate']:.2f}  "
               f"prefill chunks: {chunks} "
               f"({'disaggregated' if args.disaggregate else 'inline'})")
+        print(f"completion: {ls['completed']}/{ls['requests']} requests "
+              f"emitted ({ls['incomplete']} incomplete, rate "
+              f"{ls['completion_rate']:.2f})")
         tokens = sum(r.metrics.tokens for r in done)
         if srv.gossip is not None:
             g = srv.gossip.stats
@@ -308,6 +370,36 @@ def main(argv=None):
     print(f"device {device}: {tokens} tokens in {wall:.3f} s wall "
           f"({tokens / max(wall, 1e-9):.1f} tokens/s), kernel launches "
           f"{ops.launch_counts()}")
+
+
+def _dump_trace(srv, args) -> None:
+    """Export the run's span buffer and print the critical-path report
+    (tracing runs only when --trace was passed)."""
+    if getattr(srv, "trace", None) is None or not args.trace:
+        return
+    from repro_torch.obs.export import export_chrome, export_jsonl
+    from repro_torch.obs.report import format_report
+    if args.trace_format == "chrome":
+        export_chrome(srv.trace, args.trace)
+    else:
+        export_jsonl(srv.trace, args.trace)
+    print(f"trace: {len(srv.trace)} spans -> {args.trace} "
+          f"({args.trace_format}, {srv.trace.dropped} evicted)")
+    print(format_report(srv.trace))
+
+
+def _report_control_plane(srv) -> None:
+    """End-of-run health report for the process-backed control plane."""
+    cp = getattr(srv, "_cp", None)
+    if cp is None:
+        return
+    h = cp.health
+    print(f"control plane: {cp.n_shards} worker procs, "
+          f"{h.rpc_retries} rpc retries, {h.rpc_timeouts} timeouts, "
+          f"{h.degraded_windows} degraded windows, "
+          f"{h.worker_restarts} worker restarts, "
+          f"{h.dropped_writes} dropped writes, "
+          f"{h.full_resyncs} full resyncs")
 
 
 def _sync(device: torch.device) -> None:

@@ -35,9 +35,11 @@ the device. As in the reference, ``run_queue`` always routes through the
 batched G-TRAC router, whatever ``algorithm`` says; the anchor may be
 sharded (``anchor_shards``), and with ``gossip_enabled`` every window
 routes from the gossip seeker's staleness-bounded ``routing_view``
-(optionally behind the seeker→seeker relay plane). The reference's
-process-backed control plane and hedged executor join the port in later
-slices; asking for them raises ``NotImplementedError``.
+(optionally behind the seeker→seeker relay plane); with
+``control_plane="procs"`` every anchor shard lives in its own worker
+process behind the RPC control plane (``repro_torch.control_plane``), and
+with ``hedge_enabled`` each stream runs the hedged executor
+(``core/hedging.py``), whose backup hops run real stage forwards too.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import GTRACConfig, ModelConfig
 from repro_torch.core.executor import ChainExecutor, split_reports
+from repro_torch.core.hedging import HedgedChainExecutor
 from repro_torch.core.planner import RoutePlanner, plan_route
 from repro_torch.core.registry import SeekerCache
 from repro_torch.core.routing import ALGORITHMS
@@ -128,9 +131,6 @@ def sample_token(logits, rng: np.random.Generator,
 # ---------------------------------------------------------------------------
 
 
-# The hedge and control-plane fields belong to later slices and keep their
-# defaults here; they stay so a stream's metrics compare field for field
-# with the reference's.
 @dataclass
 class ServeMetrics:
     tokens: int = 0
@@ -218,7 +218,7 @@ def latency_summary(reqs: Sequence["RoutedRequest"]) -> Dict[str, float]:
 # ServeMetrics stream field <- obs.MetricsRegistry snapshot keys (summed).
 # A field fills only when every key is present, i.e. when the layer that
 # owns it was wired into the registry — absent layers leave the dataclass
-# defaults. (The reference's control-plane fields join with that plane.)
+# defaults, exactly like the old per-layer mirroring did.
 _STREAM_VIEW: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("relay_msgs", ("relay/msgs", "relay/summaries")),
     ("relay_bytes", ("relay/wire_bytes",)),
@@ -226,6 +226,10 @@ _STREAM_VIEW: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("relay_digest_mismatches", ("relay/digest_mismatches",)),
     ("relay_rejected_chains", ("relay/rejected_chains",)),
     ("relay_quarantines", ("relay/quarantines",)),
+    ("shard_rpc_retries", ("control_plane/rpc_retries",)),
+    ("shard_timeouts", ("control_plane/rpc_timeouts",)),
+    ("degraded_windows", ("control_plane/degraded_windows",)),
+    ("worker_restarts", ("control_plane/worker_restarts",)),
 )
 
 
@@ -235,26 +239,14 @@ class RoutedRequest(Request):
 
     metrics: ServeMetrics = field(default_factory=ServeMetrics)
     tokens: Optional[torch.Tensor] = None   # (1, S) running token tensor
-    executor: Optional[ChainExecutor] = None
+    # ChainExecutor, or HedgedChainExecutor when cfg.hedge_enabled
+    executor: Optional[object] = None
     # disaggregated prefill progress: prompt tokens prefilled so far, the
     # sim time the in-flight chunk completes, and the first decode token
     # computed by the final chunk (emitted at promotion time)
     prefill_pos: int = 0
     busy_until: float = 0.0
     _pending_tok: int = 0
-
-
-def _unported(gcfg: GTRACConfig) -> None:
-    """Raise for the reference's serving features the port leaves out."""
-    later = [
-        (gcfg.control_plane != "inproc",
-         f"control_plane={gcfg.control_plane!r} (control_plane/)"),
-        (gcfg.hedge_enabled, "hedge_enabled (core/hedging.py)"),
-    ]
-    for cond, what in later:
-        if cond:
-            raise NotImplementedError(
-                f"{what} joins repro_torch in a later slice of the port")
 
 
 class GTRACPipelineServer:
@@ -278,7 +270,6 @@ class GTRACPipelineServer:
         (``serving/batch_router.BACKENDS``)."""
         self.cfg = cfg
         self.gcfg = gcfg or GTRACConfig()
-        _unported(self.gcfg)
         self.algorithm = algorithm
         self.device = resolve_device(device)
         emb = params["embed"]["tok"]
@@ -298,6 +289,10 @@ class GTRACPipelineServer:
         # snapshot unchanged
         anchor = make_registry(self.gcfg, shards=self.gcfg.anchor_shards,
                                shard_by=self.gcfg.shard_by)
+        # process-backed control plane (cfg.control_plane="procs"): the
+        # composer carries health counters and its own staleness-priced
+        # routing_view (degraded shards' slices serve stale, discounted)
+        self._cp = anchor if hasattr(anchor, "health") else None
         peers: Dict[int, SimPeer] = {}
         replicas = replicas or {"honeypot": 2, "turtle": 2, "golden": 2}
         pid = 0
@@ -353,9 +348,11 @@ class GTRACPipelineServer:
         for i in range(self.partition.n_stages):
             self._stage_of[self.partition.segment(i)[0]] = i
         # unified telemetry plane: every layer's live stats object is a
-        # view in ONE registry — router, gossip and relay (plus the derived
-        # wire-byte total) — and the per-stream ServeMetrics relay fields
-        # fill from its snapshot (_fill_stream_metrics)
+        # view in ONE registry — router, gossip, relay (plus the derived
+        # wire-byte total) and the composer's health counters — and the
+        # per-stream ServeMetrics relay/control-plane fields fill from
+        # its snapshot (_fill_stream_metrics), not from hand-written
+        # mirroring per layer
         self.obs = MetricsRegistry()
         self.obs.expose("router", self.router.stats)
         if self.gossip is not None:
@@ -364,10 +361,14 @@ class GTRACPipelineServer:
                 rs = self.gossip.relay.stats
                 self.obs.expose("relay", rs)
                 self.obs.derived("relay/wire_bytes", rs.seeker_wire_bytes)
+        if self._cp is not None:
+            self.obs.expose("control_plane", self._cp.health)
         # end-to-end tracing (cfg.trace_enabled): one sim-clock tracer
-        # shared by routing, serving, executors, gossip and relay.
-        # Disabled, every site sees the shared NOOP_TRACER and pays one
-        # attribute check — no allocation, no clock read.
+        # shared by routing, serving, executors, gossip and relay, plus
+        # an "rpc" scope on the composer's wall clock so control-plane
+        # spans keep their own time domain in the same buffer. Disabled,
+        # every site sees the shared NOOP_TRACER and pays one attribute
+        # check — no allocation, no clock read.
         self.trace: Optional[TraceBuffer] = None
         self.tracer = NOOP_TRACER
         self._req_spans: Dict[int, object] = {}
@@ -380,6 +381,9 @@ class GTRACPipelineServer:
                 self.gossip.tracer = self.tracer
                 if self.gossip.relay is not None:
                     self.gossip.relay.tracer = self.tracer
+            if self._cp is not None:
+                self._cp.set_tracer(self.tracer.scope(
+                    "rpc", clock=self._cp.clock.monotonic))
 
     # -- hop adapter -----------------------------------------------------------
 
@@ -430,6 +434,11 @@ class GTRACPipelineServer:
             self.gossip.maybe_tick(now)
             return self.sync_seeker.routing_view(now)
         self.seeker.maybe_sync(now)
+        if self._cp is not None:
+            # process backend: the sync above pulled the shard mirrors;
+            # route on the composer's staleness-priced view so degraded
+            # shards' rows are trust-discounted instead of trusted stale
+            return self._cp.routing_view(now)
         return self.seeker.view()
 
     # -- serving ---------------------------------------------------------------
@@ -508,13 +517,20 @@ class GTRACPipelineServer:
         return tokens[0, len(prompt):].cpu().numpy().astype(np.int32), metrics
 
     def _fill_stream_metrics(self, metrics: ServeMetrics) -> None:
-        """Surface cumulative relay-plane totals on a stream's metrics from
-        ONE registry snapshot (``_STREAM_VIEW``). Fields whose owning
-        layer is absent keep their defaults."""
+        """Surface cumulative relay-plane / composer-health totals on a
+        stream's metrics from ONE registry snapshot (``_STREAM_VIEW``).
+        Fields whose owning layer is absent keep their defaults."""
         snap = self.obs.snapshot()
         for name, keys in _STREAM_VIEW:
             if all(k in snap for k in keys):
                 setattr(metrics, name, sum(snap[k] for k in keys))
+
+    def close(self) -> None:
+        """Release control-plane resources (shard worker processes).
+        Idempotent; a no-op for in-process registries."""
+        fn = getattr(self.bed.anchor, "close", None)
+        if fn is not None:
+            fn()
 
     def _token_tensor(self, prompt) -> torch.Tensor:
         """(1, S) int64 token tensor on the server's device."""
@@ -557,7 +573,14 @@ class GTRACPipelineServer:
         req = RoutedRequest.from_spec(spec, rid)
         req.tokens = self._token_tensor(req.prompt)
         hop = self._hop_fn(rid, kv_tracked=True)
-        req.executor = ChainExecutor(self.gcfg, hop)
+        # hedged window serving: behind cfg.hedge_enabled each stream runs
+        # the hedging executor (fires a backup hop when the primary exceeds
+        # hedge_quantile_factor x its latency estimate); plans splice
+        # identically in both executors, so routing is unchanged
+        req.executor = (HedgedChainExecutor(
+            self.gcfg, hop,
+            quantile_factor=self.gcfg.hedge_quantile_factor)
+            if self.gcfg.hedge_enabled else ChainExecutor(self.gcfg, hop))
         if self.tracer.enabled:
             req.executor.tracer = self.tracer
         return self.admission.submit(req)
@@ -615,6 +638,10 @@ class GTRACPipelineServer:
             self.bed.anchor.apply_report(rep)
         req.metrics.repairs += int(report.repaired)
         req.metrics.rerouted += int(report.repaired)
+        stats = getattr(req.executor, "stats", None)
+        if stats is not None:         # hedged executor: surface counts
+            req.metrics.hedges_fired = stats.hedges_fired
+            req.metrics.hedges_won = stats.hedges_won
 
     def run_queue(self) -> List[RoutedRequest]:
         """Serve every queued stream to completion under continuous

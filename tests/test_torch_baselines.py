@@ -207,16 +207,24 @@ def test_wilson_ci_edges():
 
 
 def test_make_registry_monolithic_only():
-    """The monolithic anchor for one shard, the sharded registry above it;
-    only the process-backed control plane still raises."""
+    """The monolithic anchor for one shard, the sharded registry above it,
+    and the process-backed control plane for ``backend="procs"`` (or
+    ``cfg.control_plane="procs"``), as the reference's factory dispatches;
+    an unknown backend raises."""
+    from repro_torch.control_plane import ProcessShardedRegistry
     cfg = TGTRACConfig()
     assert isinstance(make_registry(cfg), TAnchorRegistry)
     assert isinstance(make_registry(cfg, shards=1, backend="inproc"),
                       TAnchorRegistry)
     reg = make_registry(cfg, shards=4)
     assert isinstance(reg, ShardedAnchorRegistry) and reg.n_shards == 4
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_registry(cfg, backend="procs")
+    procs_cfg = TGTRACConfig(control_plane="procs")
+    for kw in ({"cfg": cfg, "backend": "procs"}, {"cfg": procs_cfg}):
+        with make_registry(shards=2, **kw) as reg:
+            assert isinstance(reg, ProcessShardedRegistry)
+            assert reg.n_shards == 2
+            reg.register(1, 0, 3, now=0.0)      # a real RPC to a worker
+            assert len(reg.snapshot(0.0)) == 1
     with pytest.raises(ValueError):
         make_registry(cfg, backend="grpc")
     bed = ttestbed.build_scaling_testbed(16, shards=4)

@@ -2,6 +2,10 @@
 neither JAX nor the reference package, and the port never quietly runs on
 the CPU when it was not asked to."""
 import ast
+import multiprocessing as mp
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -11,7 +15,14 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
+#: the modules of the hedging / control-plane / trace-export slice, each
+#: imported alone in a fresh interpreter by ``test_module_imports_alone``
+SLICE_MODULES = ("repro_torch.core.hedging", "repro_torch.control_plane",
+                 "repro_torch.control_plane.rpc",
+                 "repro_torch.control_plane.worker",
+                 "repro_torch.control_plane.registry",
+                 "repro_torch.obs.export", "repro_torch.obs.report")
 
 
 def _forbidden(name: str) -> bool:
@@ -43,6 +54,21 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_module_imports_alone(module):
+    """Imported by itself in a fresh interpreter, the module loads and
+    pulls in neither JAX nor the reference package, not even
+    transitively (a spawned shard worker imports exactly this)."""
+    code = ("import importlib, sys; importlib.import_module(%r); "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "print(bad); sys.exit(1 if bad else 0)" % module)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_forbidden_detects_reference_imports():
     assert _forbidden("jax.numpy") and _forbidden("repro.core.planner")
     assert _forbidden("repro") and not _forbidden("repro_torch.core")
@@ -62,6 +88,63 @@ def test_server_without_device_or_cuda_raises(monkeypatch):
         GTRACPipelineServer(cfg, params, layers_per_stage=1)
     # asked explicitly, the CPU is fine
     GTRACPipelineServer(cfg, params, layers_per_stage=1, device="cpu")
+
+
+def _shard_workers():
+    return [p for p in mp.active_children()
+            if p.name.startswith("anchor-shard-")]
+
+
+def test_gtrac_surface_server_without_device_or_cuda_raises(monkeypatch):
+    """Hedging, the process-backed 4-shard anchor and tracing together:
+    with no device and no CUDA the server raises before it starts a shard
+    worker; asked for the CPU it serves, and ``close`` stops its workers."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import GTRACConfig
+    from repro_torch.control_plane import ProcessShardedRegistry
+    from repro_torch.core.hedging import HedgedChainExecutor
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.api import SubmitSpec
+    from repro_torch.serving.gtrac_serve import GTRACPipelineServer
+    cfg = get_config("gpt2-large").reduced(num_layers=2, vocab_size=64,
+                                           max_position=64)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gcfg = GTRACConfig(hedge_enabled=True, control_plane="procs",
+                       anchor_shards=4, trace_enabled=True)
+    before = len(_shard_workers())
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            GTRACPipelineServer(cfg, params, layers_per_stage=1, gcfg=gcfg)
+        assert len(_shard_workers()) == before
+    srv = GTRACPipelineServer(cfg, params, layers_per_stage=1, gcfg=gcfg,
+                              device="cpu")
+    try:
+        assert isinstance(srv.bed.anchor, ProcessShardedRegistry)
+        req = srv.submit(SubmitSpec(prompt=[1, 2, 3], max_new_tokens=2))
+        assert isinstance(req.executor, HedgedChainExecutor)
+        (done,) = srv.run_queue()
+        assert done.metrics.tokens == 2 and len(srv.trace) > 0
+        assert srv._cp.health.rpc_timeouts == 0
+    finally:
+        srv.close()
+    for p in mp.active_children():
+        p.join(timeout=10)
+    assert len(_shard_workers()) == before
+
+
+def test_serve_gtrac_surface_without_device_or_cuda_raises(monkeypatch,
+                                                           tmp_path):
+    """The serve CLI with the slice's flags raises without CUDA when no
+    device is given."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--reduced", "--windowed", "--hedged", "--shards", "4",
+                    "--control-plane", "procs", "--trace",
+                    str(tmp_path / "t.jsonl"), "--tokens", "2",
+                    "--requests", "1"])
+    assert not (tmp_path / "t.jsonl").exists()
 
 
 def test_routing_entry_points_without_device_or_cuda_raise(monkeypatch):

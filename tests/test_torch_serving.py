@@ -182,13 +182,3 @@ def test_traced_run_queue_matches_reference(models):
     assert len(tsrv.trace) > 0
     assert spans(tsrv.trace) == spans(srv.trace)
 
-
-def test_later_slice_features_raise(models):
-    tparams = models[2]
-    tcfg = tget_config("gpt2-large").reduced(**REDUCED)
-    for kw, algo in (({"hedge_enabled": True}, "gtrac"),
-                     ({"control_plane": "procs"}, "gtrac")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TGTRACPipelineServer(tcfg, tparams, layers_per_stage=2,
-                                 gcfg=TGTRACConfig(**kw), algorithm=algo,
-                                 device="cpu")
