@@ -4,8 +4,10 @@
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
 Phases, each of which fails the run (non-zero exit) when it fails (they
-run in the order 1, 15, 14, 10, 2, 11-13, 3, 4, 16, 17, 5-9: the engine paths
-first, so that a fault there shows before the long routing phases):
+run in the order 1, 15, 14, 10, 2, 18's kernel checks, 11-13, 3, 4, 16, 17,
+5-9, the rest of 18: the engine paths first, so that a fault there shows
+before the long routing phases, and the kernel checks early, where
+``torch.profiler`` still records their device time):
 
 1. build  — compiles the hand-written kernels from ``src/repro_torch/csrc``
    with nvcc for sm_90a, in parallel (one nvcc per source).
@@ -172,6 +174,31 @@ first, so that a fault there shows before the long routing phases):
    ends with the rehearsed tokens, one restart, at least one degraded
    window, and the composer's mirrors equal the live workers' exports.
    Every server is closed and no shard worker outlives the phase.
+18. model zoo — the rest of the reference's decoder-only configs. K3
+   (B = 4, S = 2048, causal) and K4 (B = 4, 2144 cache rows; kv_len 1, 37,
+   2080, 2144, and again on a split boundary) against their plain
+   versions within 2e-4 (f32) / 2e-2 (bf16), timed beside SDPA and the
+   bound, at each new model's head shape: smollm-360m 15/5 and qwen3-moe
+   32/4 at D = 64, starcoder2-7b 36/4, phi3.5-moe 32/8 and granite-34b
+   48/1 at D = 128. Then qwen3-moe-30b-a3b at full width (48 layers, 128
+   experts top-8, bf16 parameters: 60.2 GB) serves phase 3's workload
+   through ``run_queue`` (24 stages x 6 replicas = 144 peers). Fails
+   unless every stream emits its 16 tokens, K1 launched once per DP
+   window, K3 once per layer of every stage forward, K4 never, and the
+   windows and stage forwards are the CPU rehearsal's (34 and 1608); logs
+   tokens/s beside phase 3's. The same model cut to 8 of its 48 layers in
+   f32 activations through the kernels and through the plain path must
+   give identical tokens and ServeMetrics (the router's top-k sets that
+   differ between the two runs are counted). A profile of its run_queue
+   and of its engine prefill and decode windows follows. Last, the
+   KV-cache engine runs phase 11's workload (4 prompts of 8 and 4 of
+   2048, 32 new tokens) on smollm-360m and starcoder2-7b (f32
+   parameters), qwen3-moe and granite-34b (bf16 parameters: 67.7 GB) and
+   phi3.5-moe cut to 24 of its 32 layers (bf16, ~63 GB), each loaded
+   after the previous one is freed, with phase 11's gates (MoE launches
+   K3 and K4 as a dense model does) and phase 12's f32 kernel-vs-plain
+   token parity (prompts of 16 and 320), with the MoE router's differing
+   top-k sets counted.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and the result line
@@ -344,7 +371,10 @@ def phase_build():
     secs = time.perf_counter() - t0
     for src, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line.lower():
+            # each kernel's entry line names it (mangled: the template
+            # argument, e.g. the head dim, is in the name)
+            if "registers" in line or "spill" in line.lower() or \
+                    "Compiling entry function" in line:
                 log(f"ptxas {src}: {line.strip()}")
     log({"phase": "build", "seconds": round(secs, 3),
          "sources": sorted(logs)})
@@ -729,12 +759,61 @@ K5_KERNELS = ("wkv6_prep_kernel<", "wkv6_scan_kernel<")
 K6_KERNELS = ("ssd_prep_kernel<", "ssd_scan_kernel<")
 
 
-def phase_k3():
+def k3_case(gen, dtype, B, S, Hq, Hkv, D, causal, timed=False,
+            shape=None) -> dict:
+    """K3 against its plain version on one shape (random normal q, k, v
+    from ``gen``): fails beyond 2e-4 (f32) / 2e-2 (bf16) absolute. With
+    ``timed``, the kernel, its plain version and SDPA per call, and the
+    bound; with ``shape`` (a model's name) also the kernel's and SDPA's
+    device time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    q = torch.randn((B, S, Hq, D), generator=gen, device=DEVICE,
+                    dtype=torch.float32).to(dtype)
+    k = torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE,
+                    dtype=torch.float32).to(dtype)
+    v = torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE,
+                    dtype=torch.float32).to(dtype)
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    err = float((got.float() - want.float()).abs().max())
+    name = str(dtype).replace("torch.", "")
+    if not err <= tol[dtype]:
+        raise AssertionError(
+            f"K3 {name} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+            f"causal={causal}: max abs err {err} > {tol[dtype]}")
+    # the largest |o| sets the bf16 step the error is read against
+    row = {"dtype": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv,
+           "D": D, "causal": causal, "max_abs_err": err,
+           "max_abs_out": float(want.float().abs().max())}
+    if timed or shape:
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, causal=causal), iters=50)
+        row["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal), iters=20)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv)
+        row["library_ms"] = cuda_ms(sdpa, iters=50)
+        row["bound_ms"], row["bound_by"] = k3_bound_ms(
+            B, S, Hq, Hkv, D, dtype, causal)
+        if shape:
+            row["shape"] = shape
+            row["device_ms_per_launch"] = device_ms(
+                lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
+                K3_KERNELS[name], iters=5)
+            row["library_device_ms"] = device_ms(sdpa, None, iters=5)
+    log({"k3": row})
+    return row
+
+
+def phase_k3():
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     shapes = [(1, S, 20, 20, 64, True)
               for S in (8, 100, 128, 200, 300, 1024)]
     shapes += [(2, 200, 8, 2, 128, True), (2, 96, 4, 2, 32, False),
@@ -745,52 +824,17 @@ def phase_k3():
                (4, 2048, 32, 32, 80, True), (2, 100, 4, 4, 80, False)]
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
         for B, S, Hq, Hkv, D, causal in shapes:
-            q = torch.randn((B, S, Hq, D), generator=gen, device=DEVICE,
-                            dtype=torch.float32).to(dtype)
-            k = torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE,
-                            dtype=torch.float32).to(dtype)
-            v = torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE,
-                            dtype=torch.float32).to(dtype)
-            got = fa.flash_attention_cuda(q, k, v, causal=causal)
-            want = fa.flash_attention_plain(q, k, v, causal=causal)
-            err = float((got.float() - want.float()).abs().max())
-            name = str(dtype).replace("torch.", "")
-            if not err <= tol[dtype]:
-                raise AssertionError(
-                    f"K3 {name} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-                    f"causal={causal}: max abs err {err} > {tol[dtype]}")
-            # the largest |o| sets the bf16 step the error is read against
-            row = {"dtype": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv,
-                   "D": D, "causal": causal, "max_abs_err": err,
-                   "max_abs_out": float(want.float().abs().max())}
             engine = K3_ENGINE_SHAPES.get((B, S, Hq, Hkv, D)) \
                 if causal else None
-            if (B == 1 and Hq == Hkv == 20 and D == 64) or engine:
-                qt, kt, vt = (t.transpose(1, 2).contiguous()
-                              for t in (q, k, v))
-                row["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(
-                    q, k, v, causal=causal), iters=50)
-                row["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
-                    q, k, v, causal=causal), iters=20)
-                def sdpa():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv)
-                row["library_ms"] = cuda_ms(sdpa, iters=50)
-                row["bound_ms"], row["bound_by"] = k3_bound_ms(
-                    B, S, Hq, Hkv, D, dtype, causal)
-                if engine:
-                    row["shape"] = engine
-                    row["device_ms_per_launch"] = device_ms(
-                        lambda: fa.flash_attention_cuda(
-                            q, k, v, causal=causal), K3_KERNELS[name],
-                        iters=5)
-                    row["library_device_ms"] = device_ms(sdpa, None,
-                                                         iters=5)
-                    rows[(name, engine)] = row
-                else:
-                    rows[(name, S)] = row
-            log({"k3": row})
+            timed = B == 1 and Hq == Hkv == 20 and D == 64
+            row = k3_case(gen, dtype, B, S, Hq, Hkv, D, causal, timed,
+                          engine)
+            if engine:
+                rows[(name, engine)] = row
+            elif timed:
+                rows[(name, S)] = row
     return rows
 
 
@@ -1703,12 +1747,12 @@ def phase_routing(srv):
     return out
 
 
-def phase_profile(cfg, params):
+def phase_profile(cfg, params, key: str = "profile"):
     """Device time by kernel over a short main-path run (two streams, the
     kernels as in phase 3) under ``torch.profiler``: the device's busy
     share of the wall time, the top kernels, and each hand-written
-    kernel's device-only time per launch. Prints "not measured" when the
-    profiler records no device activity."""
+    kernel's device-only time per launch, printed under ``key``. Prints
+    "not measured" when the profiler records no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1725,7 +1769,7 @@ def phase_profile(cfg, params):
             side = kernels if e.device_type == DeviceType.CUDA else ops
             side[e.key] = (t / 1e3, e.count)
     if not kernels:
-        log({"profile": "not measured (no device activity recorded)"})
+        log({key: "not measured (no device activity recorded)"})
         return
 
     def top(d):
@@ -1738,7 +1782,8 @@ def phase_profile(cfg, params):
             if name_matches(k, ("route_kbest_kernel", "route_kernel(",
                                 "route_window_kbest_kernel",
                                 *K3_KERNELS.values()))}
-    log({"profile": {
+    log({key: {
+        "model": cfg.name,
         "wall_s": wall, "tokens": sum(r.metrics.tokens for r in done),
         "device_busy_ms": busy, "device_busy_share": busy / (wall * 1e3),
         "top_ops_ms_calls": top(ops), "top_kernels_ms_calls": top(kernels),
@@ -1982,15 +2027,81 @@ def k4_bound_ms(B, Hq, Hkv, D, kv_len, dtype) -> tuple:
             "operations")
 
 
+def k4_case(gen, dtype, name, B, S, Hq, Hkv, D, lens, timed,
+            sms) -> dict:
+    """K4 against its plain version on one shape (random normal q and
+    cache from ``gen``, live rows ``lens``): fails beyond 2e-4 (f32) /
+    2e-2 (bf16) absolute. With ``timed``, the kernel per call and on the
+    device (split and combine together), its plain version, SDPA with a
+    live mask and the bound, with the split plan."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    name_t = str(dtype).replace("torch.", "")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.float32).to(dtype)
+    q, k, v = randn(B, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    got = da.decode_attention_cuda(q, k, v, kv_len)
+    want = da.decode_attention_plain(q, k, v, kv_len)
+    sync()
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= tol[dtype]:
+        raise AssertionError(
+            f"K4 {name_t} {name} B={B} S={S} Hq={Hq} Hkv={Hkv} "
+            f"D={D} kv_len={lens}: max abs err {err} > {tol[dtype]}")
+    row = {"dtype": name_t, "shape": name, "B": B, "S": S, "Hq": Hq,
+           "Hkv": Hkv, "D": D, "kv_len": list(lens), "max_abs_err": err}
+    if timed:
+        qt = q[:, :, None, :]
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        live = (torch.arange(S, device=DEVICE)[None, :]
+                < kv_len[:, None])[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=live, enable_gqa=True)
+        row["sdpa_max_abs_err"] = float(
+            (sdpa()[:, :, 0].float() - want.float()).abs().max())
+        row["ms"] = cuda_ms(lambda: da.decode_attention_cuda(
+            q, k, v, kv_len), iters=200)
+        row["device_ms_per_launch"] = device_ms(
+            lambda: da.decode_attention_cuda(q, k, v, kv_len), K4_KERNELS)
+        row["plain_ms"] = cuda_ms(lambda: da.decode_attention_plain(
+            q, k, v, kv_len), iters=20)
+        row["library_ms"] = cuda_ms(sdpa, iters=100)
+        # every kernel of the SDPA call, mask handling included
+        row["library_device_ms"] = device_ms(sdpa, None)
+        row["bound_ms"], row["bound_by"] = k4_bound_ms(
+            B, Hq, Hkv, D, lens, dtype)
+        splits, _ = da.split_plan(S, B, Hkv, sms)
+        row["splits"] = splits
+        row["ctas"] = splits * Hkv * B
+    log({"k4": row})
+    return row
+
+
+def k4_split_rows(shapes, sms) -> list:
+    """Each timed shape again with kv_len = 1 (every split past the first
+    empty), on the first split boundary, = S and in the middle."""
+    from repro_torch.kernels import decode_attention as da
+    out = []
+    for name, B, S, Hq, Hkv, D, _, _ in shapes:
+        _, bound = da.split_plan(S, B, Hkv, sms)
+        out.append((name + "-splits", B, S, Hq, Hkv, D,
+                    (1, bound, S, S // 2 + 3)[:B], False))
+    return out
+
+
 def phase_k4():
     """K4 against its plain version at the engine's decode shapes, a ragged
     capacity and small shapes; timed beside its plain version, its bound
     and SDPA with a live mask, per call and on the device."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as da
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
-    tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
     # (name, B, S, Hq, Hkv, D, kv_len, timed)
     shapes = [("gpt2-large", 4, 1120, 20, 20, 64, (1, 37, 1056, 1120), True),
               ("tinyllama-1.1b", 4, 2144, 32, 4, 64, (1, 37, 2080, 2144),
@@ -2001,61 +2112,14 @@ def phase_k4():
               ("small-gqa", 2, 64, 4, 2, 32, (1, 64), False),
               ("small-mha", 1, 128, 5, 5, 16, (77,), False),
               ("small-mqa", 2, 200, 8, 1, 64, (200, 3), False)]
-    # the engine shapes again with kv_len = 1 (every split past the first
-    # empty), on the first split boundary, = S and in the middle
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, B, S, Hq, Hkv, D, _, _ in shapes[:4]:
-        _, bound = da.split_plan(S, B, Hkv, sms)
-        shapes.append((name + "-splits", B, S, Hq, Hkv, D,
-                       (1, bound, S, S // 2 + 3)[:B], False))
+    shapes += k4_split_rows(shapes[:4], sms)
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        name_t = str(dtype).replace("torch.", "")
-        for name, B, S, Hq, Hkv, D, lens, timed in shapes:
-            def randn(*shape):
-                return torch.randn(shape, generator=gen, device=DEVICE,
-                                   dtype=torch.float32).to(dtype)
-            q, k, v = randn(B, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
-            kv_len = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
-            got = da.decode_attention_cuda(q, k, v, kv_len)
-            want = da.decode_attention_plain(q, k, v, kv_len)
-            sync()
-            err = float((got.float() - want.float()).abs().max())
-            if not err <= tol[dtype]:
-                raise AssertionError(
-                    f"K4 {name_t} {name} B={B} S={S} Hq={Hq} Hkv={Hkv} "
-                    f"D={D} kv_len={lens}: max abs err {err} > {tol[dtype]}")
-            row = {"dtype": name_t, "shape": name, "B": B, "S": S, "Hq": Hq,
-                   "Hkv": Hkv, "D": D, "kv_len": list(lens),
-                   "max_abs_err": err}
-            if timed:
-                qt = q[:, :, None, :]
-                kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
-                live = (torch.arange(S, device=DEVICE)[None, :]
-                        < kv_len[:, None])[:, None, None, :]
-
-                def sdpa():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=live, enable_gqa=True)
-                row["sdpa_max_abs_err"] = float(
-                    (sdpa()[:, :, 0].float() - want.float()).abs().max())
-                row["ms"] = cuda_ms(lambda: da.decode_attention_cuda(
-                    q, k, v, kv_len), iters=200)
-                row["device_ms_per_launch"] = device_ms(
-                    lambda: da.decode_attention_cuda(q, k, v, kv_len),
-                    K4_KERNELS)
-                row["plain_ms"] = cuda_ms(lambda: da.decode_attention_plain(
-                    q, k, v, kv_len), iters=20)
-                row["library_ms"] = cuda_ms(sdpa, iters=100)
-                # every kernel of the SDPA call, mask handling included
-                row["library_device_ms"] = device_ms(sdpa, None)
-                row["bound_ms"], row["bound_by"] = k4_bound_ms(
-                    B, Hq, Hkv, D, lens, dtype)
-                splits, _ = da.split_plan(S, B, Hkv, sms)
-                row["splits"] = splits
-                row["ctas"] = splits * Hkv * B
-                rows[(name_t, name)] = row
-            log({"k4": row})
+        for shape in shapes:
+            row = k4_case(gen, dtype, *shape, sms)
+            if shape[-1]:
+                rows[(row["dtype"], shape[0])] = row
     return rows
 
 
@@ -2347,8 +2411,8 @@ def n_parameters(params) -> int:
 
 
 def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
-    """The engine's kernel launches: a dense model runs K3 once per layer
-    of every prefill and K4 once per layer of every decode step; RWKV6
+    """The engine's kernel launches: a dense or MoE model runs K3 once per
+    layer of every prefill and K4 once per layer of every decode step; RWKV6
     runs K5 once per layer of every prefill and no attention kernel;
     Zamba2 runs K6 once per Mamba2 block of every prefill, and K3 (prefill)
     and K4 (decode step) once per application of its shared block."""
@@ -2367,85 +2431,102 @@ def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
             "ssd_chunked": 0}
 
 
-def phase_engine(gpt2_params):
-    """The KV-cache engine at full width, bf16, through the kernels."""
+def check_engine_launches(arch, cfg, eng, counts) -> None:
+    """Every kernel launched exactly as the engine's path needs
+    (``expected_launches``)."""
+    want = expected_launches(cfg, eng.prefills, eng.decode_steps)
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(
+                f"engine {arch}: {name} launched {counts[name]} times, "
+                f"expected {n} ({eng.prefills} prefills, "
+                f"{eng.decode_steps} decode steps, "
+                f"{cfg.num_layers} layers)")
+
+
+def run_engine(arch, cfg, params, groups) -> dict:
+    """The KV-cache engine on ``groups`` of requests, ENGINE_TOKENS new
+    tokens each, after a warm-up run of the same requests: fails unless
+    every stream gets its tokens, the engine runs one prefill per group
+    and ENGINE_TOKENS - 1 decode steps per group, every kernel launches as
+    the path needs and every cache's bytes equal ``cache_bytes``."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serving.kv_cache import cache_bytes
+    # warm-up run with the timed run's requests: every prefill and
+    # decode shape of the timed window is seen once before it
+    warm = timed_engine(cfg, params)
+    engine_requests(warm, cfg.vocab_size, groups, ENGINE_TOKENS)
+    warm.run_batch()
+    sync()
+    eng = timed_engine(cfg, params)
+    reqs = engine_requests(eng, cfg.vocab_size, groups, ENGINE_TOKENS)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    done = eng.run_batch()
+    sync()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+    for r in done:
+        if len(r.output) != ENGINE_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"engine {arch}: request "
+                                 f"{r.request_id} gave {r.output}")
+    if len(done) != len(reqs):
+        raise AssertionError(f"engine {arch}: {len(done)} of "
+                             f"{len(reqs)} requests served")
+    if eng.prefills != len(groups) or \
+            eng.decode_steps != len(groups) * (ENGINE_TOKENS - 1):
+        raise AssertionError(
+            f"engine {arch}: {eng.prefills} prefills and "
+            f"{eng.decode_steps} decode steps for {len(groups)} groups "
+            f"of {ENGINE_TOKENS} tokens")
+    check_engine_launches(arch, cfg, eng, counts)
+    for shape, cap, nbytes in eng.cache_bytes_seen:
+        if nbytes != cache_bytes(cfg, shape[0], cap):
+            raise AssertionError(f"engine {arch}: cache of {nbytes} "
+                                 f"bytes, cache_bytes says "
+                                 f"{cache_bytes(cfg, shape[0], cap)}")
+    tokens = sum(len(r.output) for r in done)
+    return {"arch": arch, "family": cfg.family,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "vocab": cfg.vocab_size, "parameters": n_parameters(params),
+            "param_dtype": cfg.param_dtype,
+            "activation_dtype": cfg.activation_dtype,
+            "groups": [list(g) for g in groups],
+            "new_tokens": ENGINE_TOKENS, "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "prefill_ms": [t * 1e3 for t in eng.prefill_s],
+            "decode_ms_per_step_median": sorted(eng.decode_s)[
+                len(eng.decode_s) // 2] * 1e3,
+            "decode_steps": eng.decode_steps, "prefills": eng.prefills,
+            "launches": counts,
+            "cache_bytes": [[list(s), c, b] for s, c, b in
+                            eng.cache_bytes_seen],
+            "max_memory_allocated": peak}
+
+
+def phase_engine(gpt2_params):
+    """The KV-cache engine at full width, bf16, through the kernels."""
     out = {}
     for arch, groups in ENGINE_RUNS:
         cfg, params = engine_params(arch, gpt2_params)
-        # warm-up run with the timed run's requests: every prefill and
-        # decode shape of the timed window is seen once before it
-        warm = timed_engine(cfg, params)
-        engine_requests(warm, cfg.vocab_size, groups, ENGINE_TOKENS)
-        warm.run_batch()
-        sync()
-        eng = timed_engine(cfg, params)
-        reqs = engine_requests(eng, cfg.vocab_size, groups, ENGINE_TOKENS)
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        sync()
-        t0 = time.perf_counter()
-        done = eng.run_batch()
-        sync()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        for r in done:
-            if len(r.output) != ENGINE_TOKENS or not all(
-                    0 <= t < cfg.vocab_size for t in r.output):
-                raise AssertionError(f"engine {arch}: request "
-                                     f"{r.request_id} gave {r.output}")
-        if len(done) != len(reqs):
-            raise AssertionError(f"engine {arch}: {len(done)} of "
-                                 f"{len(reqs)} requests served")
-        if eng.prefills != len(groups) or \
-                eng.decode_steps != len(groups) * (ENGINE_TOKENS - 1):
-            raise AssertionError(
-                f"engine {arch}: {eng.prefills} prefills and "
-                f"{eng.decode_steps} decode steps for {len(groups)} groups "
-                f"of {ENGINE_TOKENS} tokens")
-        want = expected_launches(cfg, eng.prefills, eng.decode_steps)
-        for name, n in want.items():
-            if counts[name] != n:
-                raise AssertionError(
-                    f"engine {arch}: {name} launched {counts[name]} times, "
-                    f"expected {n} ({eng.prefills} prefills, "
-                    f"{eng.decode_steps} decode steps, "
-                    f"{cfg.num_layers} layers)")
-        for shape, cap, nbytes in eng.cache_bytes_seen:
-            if nbytes != cache_bytes(cfg, shape[0], cap):
-                raise AssertionError(f"engine {arch}: cache of {nbytes} "
-                                     f"bytes, cache_bytes says "
-                                     f"{cache_bytes(cfg, shape[0], cap)}")
-        n_params = n_parameters(params)
-        if arch == "zamba2-2.7b" and n_params != ZAMBA2_PARAMETERS:
-            raise AssertionError(f"engine {arch}: {n_params} parameters, the "
-                                 f"reference has {ZAMBA2_PARAMETERS}")
-        tokens = sum(len(r.output) for r in done)
-        row = {"arch": arch, "family": cfg.family,
-               "layers": cfg.num_layers, "d_model": cfg.d_model,
-               "heads": [cfg.num_heads, cfg.num_kv_heads],
-               "vocab": cfg.vocab_size, "parameters": n_params,
-               "activation_dtype": cfg.activation_dtype,
-               "groups": [list(g) for g in groups],
-               "new_tokens": ENGINE_TOKENS, "tokens": tokens, "wall_s": wall,
-               "tokens_per_s": tokens / wall,
-               "prefill_ms": [t * 1e3 for t in eng.prefill_s],
-               "decode_ms_per_step_median": sorted(eng.decode_s)[
-                   len(eng.decode_s) // 2] * 1e3,
-               "decode_steps": eng.decode_steps, "prefills": eng.prefills,
-               "launches": counts,
-               "cache_bytes": [[list(s), c, b] for s, c, b in
-                               eng.cache_bytes_seen],
-               "max_memory_allocated": peak}
+        row = run_engine(arch, cfg, params, groups)
+        if arch == "zamba2-2.7b" and row["parameters"] != ZAMBA2_PARAMETERS:
+            raise AssertionError(f"engine {arch}: {row['parameters']} "
+                                 f"parameters, the reference has "
+                                 f"{ZAMBA2_PARAMETERS}")
         out[arch] = row
         log({"engine": row})
         # the engines hold the parameters too, inside reference cycles
         # (their timed closures): drop and collect them, so the next
         # model's peak memory is its own
-        del params, warm, eng, done
+        del params
         gc.collect()
     return out
 
@@ -2508,30 +2589,79 @@ def phase_engine_parity(gpt2_params):
              ("rwkv6-1.6b", full("rwkv6-1.6b"), rwkv_groups)]
     for name, make, groups in cases:
         cfg, params = make()
-        cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
-        plain32 = dataclasses.replace(cfg32, attn_impl="xla")
+        engine_parity(name, cfg, params, groups)
+        del params
+
+
+class RouterLog:
+    """Records every MoE routing decision while active: each call's
+    selected expert sets (``route_topk``'s idx, sorted per token)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.sets, self._orig = [], moe.route_topk
+
+        def recorded(cfg, p, xf):
+            gates, idx, probs = self._orig(cfg, p, xf)
+            self.sets.append(idx.sort(dim=-1).values)
+            return gates, idx, probs
+
+        moe.route_topk = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route_topk = self._orig
+
+
+def router_flips(a: RouterLog, b: RouterLog) -> int:
+    """Tokens whose selected expert set differs between two runs, over
+    their routing calls in order, as far as the calls align (same count
+    of tokens)."""
+    flips = 0
+    for x, y in zip(a.sets, b.sets):
+        if x.shape != y.shape:
+            break
+        flips += int((x != y).any(dim=-1).sum())
+    return flips
+
+
+def engine_parity(name, cfg, params, groups) -> dict:
+    """f32 greedy tokens of the kernel path equal the plain path's
+    (``attn_impl="xla"``) on ``groups`` of requests, PARITY_TOKENS new
+    tokens each; on a mismatch the plain path's top-2 logit margin at the
+    first differing step is printed, and for MoE models the router's
+    top-k sets that differ between the two runs are counted either way."""
+    cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+    plain32 = dataclasses.replace(cfg32, attn_impl="xla")
+    with RouterLog() as k_log:
         k_out, prompts, k_s = engine_tokens(cfg32, params, groups,
                                             PARITY_TOKENS)
+    with RouterLog() as p_log:
         p_out, _, p_s = engine_tokens(plain32, params, groups,
                                       PARITY_TOKENS)
-        if k_out != p_out or any(len(o) != PARITY_TOKENS for o in k_out):
-            for i, (ko, po) in enumerate(zip(k_out, p_out)):
-                if ko != po:
-                    t = next((t for t, (a, b) in enumerate(zip(ko, po))
-                              if a != b), min(len(ko), len(po)))
-                    log({"engine_f32_divergence": {
-                        "model": name, "request": i, "step": t,
-                        "kernel_token": ko[t] if t < len(ko) else None,
-                        "plain_token": po[t] if t < len(po) else None,
-                        "top2_logit_margin": top2_margin(
-                            plain32, params, prompts[i], po[:t])}})
-                    break
-            raise AssertionError(f"engine f32 {name}: kernel path {k_out} "
-                                 f"vs plain path {p_out}")
-        log({"engine_f32_parity": {"model": name, "requests": len(k_out),
-                                   "equal": True, "kernel_path_s": k_s,
-                                   "plain_path_s": p_s}})
-        del params
+    row = {"model": name, "requests": len(k_out), "kernel_path_s": k_s,
+           "plain_path_s": p_s}
+    if cfg.family == "moe":
+        row["router_calls"] = len(k_log.sets)
+        row["router_topk_sets_differing"] = router_flips(k_log, p_log)
+    if k_out != p_out or any(len(o) != PARITY_TOKENS for o in k_out):
+        for i, (ko, po) in enumerate(zip(k_out, p_out)):
+            if ko != po:
+                t = next((t for t, (a, b) in enumerate(zip(ko, po))
+                          if a != b), min(len(ko), len(po)))
+                log({"engine_f32_divergence": {
+                    **row, "request": i, "step": t,
+                    "kernel_token": ko[t] if t < len(ko) else None,
+                    "plain_token": po[t] if t < len(po) else None,
+                    "top2_logit_margin": top2_margin(
+                        plain32, params, prompts[i], po[:t])}})
+                break
+        raise AssertionError(f"engine f32 {name}: kernel path {k_out} "
+                             f"vs plain path {p_out}")
+    row["equal"] = True
+    log({"engine_f32_parity": row})
+    return row
 
 
 def profile_window(fn):
@@ -2580,64 +2710,261 @@ def profile_summary(wall, kernels, ops_ms, hand):
                 kernels.items(), key=lambda kv: -kv[1][0])[:8]]}
 
 
-def phase_engine_profile(gpt2_params):
-    """Device time by kernel over one prefill of each engine model's
-    longest prompts (batch 4) and over decode steps after it: the device's
-    busy share and the hand-written kernels' shares (K3 in the attention
-    prefills, K5 in RWKV6's, K6 and K3 in Zamba2's, K4 in decode; K4's
-    split and combine kernels, K5's and K6's pre-pass and scan, each pair
-    together, its ``*_kernel_launches`` counting both) against the weight
-    casts and the matmuls."""
+def engine_profile(arch, cfg, params, S: int, steps: int = 8) -> None:
+    """Device time by kernel over one prefill of 4 prompts of ``S`` tokens
+    and over ``steps`` decode steps after it: the device's busy share and
+    the hand-written kernels' shares (K3 in the attention prefills, K5 in
+    RWKV6's, K6 and K3 in Zamba2's, K4 in decode; K4's split and combine
+    kernels, K5's and K6's pre-pass and scan, each pair together, its
+    ``*_kernel_launches`` counting both) against the weight casts and the
+    matmuls."""
     import torch
     from repro_torch.models.api import build_model
-    steps = 8
+    model = build_model(cfg)
+    toks = torch.randint(1, cfg.vocab_size, (4, S), device=DEVICE,
+                         generator=torch.Generator(device=DEVICE)
+                         .manual_seed(SEED))
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = model.prefill(
+            params, tokens=toks, capacity=S + steps + 1)
+
+    def decode():
+        for _ in range(steps):
+            cur = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
+            state["logits"], state["cache"] = model.decode_step(
+                params, cur, state["cache"])
+
+    windows = []
+    with torch.inference_mode():
+        prefill()
+        cur = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
+        model.decode_step(params, cur, state["cache"])      # warm
+        sync()
+        k3 = ("k3", tuple(K3_KERNELS.values()))
+        if cfg.family == "ssm":
+            hand = [("k5", K5_KERNELS)]
+        elif cfg.family == "hybrid":
+            hand = [("k6", K6_KERNELS), k3]
+        else:
+            hand = [k3]
+        windows.append(("prefill", hand, profile_window(prefill)))
+        windows.append(("decode", [] if cfg.family == "ssm" else
+                        [("k4", K4_KERNELS)], profile_window(decode)))
+    for window, hand, (wall, kernels, ops_ms) in windows:
+        head = {"arch": arch, "window": window, "batch": 4, "prompt": S}
+        if window == "decode":
+            head["decode_steps"] = steps
+        if not kernels:
+            log({"engine_profile": {**head, "profile": "not measured "
+                                    "(no device activity recorded)"}})
+            continue
+        log({"engine_profile": {**head, **profile_summary(
+            wall, kernels, ops_ms, hand)}})
+
+
+def phase_engine_profile(gpt2_params):
+    """``engine_profile`` of each engine model at its longest prompts."""
     for arch, groups in ENGINE_RUNS:
         cfg, params = engine_params(arch, gpt2_params)
-        model = build_model(cfg)
-        S = groups[-1][0]
-        toks = torch.randint(1, cfg.vocab_size, (4, S), device=DEVICE,
-                             generator=torch.Generator(device=DEVICE)
-                             .manual_seed(SEED))
-        state = {}
+        engine_profile(arch, cfg, params, groups[-1][0])
+        del params
 
-        def prefill():
-            state["logits"], state["cache"] = model.prefill(
-                params, tokens=toks, capacity=S + steps + 1)
 
-        def decode():
-            for _ in range(steps):
-                cur = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
-                state["logits"], state["cache"] = model.decode_step(
-                    params, cur, state["cache"])
+# ---------------------------------------------------------------------------
+# Phase 18: the rest of the decoder zoo (RoPE and MoE models)
+# ---------------------------------------------------------------------------
 
-        windows = []
-        with torch.inference_mode():
-            prefill()
-            cur = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
-            model.decode_step(params, cur, state["cache"])      # warm
-            sync()
-            k3 = ("k3", tuple(K3_KERNELS.values()))
-            if cfg.family == "ssm":
-                hand = [("k5", K5_KERNELS)]
-            elif cfg.family == "hybrid":
-                hand = [("k6", K6_KERNELS), k3]
-            else:
-                hand = [k3]
-            windows.append(("prefill", hand, profile_window(prefill)))
-            windows.append(("decode", [] if cfg.family == "ssm" else
-                            [("k4", K4_KERNELS)], profile_window(decode)))
-        for window, hand, (wall, kernels, ops_ms) in windows:
-            head = {"arch": arch, "window": window, "batch": 4,
-                    "prompt": S}
-            if window == "decode":
-                head["decode_steps"] = steps
-            if not kernels:
-                log({"engine_profile": {**head, "profile": "not measured "
-                                        "(no device activity recorded)"}})
-                continue
-            log({"engine_profile": {**head, **profile_summary(
-                wall, kernels, ops_ms, hand)}})
-        del params, state
+
+#: K3's and K4's head shapes of the new models: (arch, Hq, Hkv, D)
+ZOO_HEADS = (("smollm-360m", 15, 5, 64), ("qwen3-moe-30b-a3b", 32, 4, 64),
+             ("starcoder2-7b", 36, 4, 128),
+             ("phi3.5-moe-42b-a6.6b", 32, 8, 128),
+             ("granite-34b", 48, 1, 128))
+#: K3's batch and prompt (the engine's longest prefill)
+ZOO_K3 = (4, 2048)
+#: the model served through run_queue at full width
+ZOO_MAIN = "qwen3-moe-30b-a3b"
+#: layers kept (of 48) in the f32 kernel-vs-plain run_queue comparison
+ZOO_PARITY_LAYERS = 8
+#: the engine's models: (arch, parameter dtype, layers kept, None = all).
+#: In f32, granite-34b (134.6 GB), qwen3-moe (120.3 GB) and phi3.5-moe
+#: (167.5 GB) exceed one 80 GB card; phi3.5-moe's 83.7 GB in bf16 too, so
+#: its depth is cut to 24 of 32 layers (~63 GB)
+ZOO_ENGINE = (("qwen3-moe-30b-a3b", "bfloat16", None),
+              ("smollm-360m", "float32", None),
+              ("starcoder2-7b", "float32", None),
+              ("granite-34b", "bfloat16", None),
+              ("phi3.5-moe-42b-a6.6b", "bfloat16", 24))
+#: the engine's workload (phase 11's): 4 prompts of 8 and 4 of 2048
+ZOO_ENGINE_GROUPS = ((8, 4), (2048, 4))
+#: the f32 kernel-vs-plain engine comparison's requests
+ZOO_PARITY_GROUPS = ((16, 2), (320, 2))
+#: run_queue's windows (each runs the DP) and stage forwards for the main
+#: workload on the 48-layer topology (24 stages x 6 replicas), from the
+#: CPU rehearsal of this phase: the simulation draws nothing that depends
+#: on the model's width
+ZOO_WINDOWS = 34
+ZOO_FORWARDS = 1608
+
+
+def phase_zoo_kernels():
+    """K3 (B = 4, S = 2048, causal) and K4 (B = 4 at the engine's decode
+    capacity, 2144 rows) against their plain versions at each new model's
+    head shape, bf16 and f32, timed beside SDPA and the bound; K4 also
+    with kv_len on a split boundary (``*-splits`` rows)."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, S = ZOO_K3
+    cap = S + ENGINE_TOKENS + 64              # ServingEngine's capacity
+    k4_shapes = [(arch, B, cap, Hq, Hkv, D, (1, 37, S + ENGINE_TOKENS, cap),
+                  True) for arch, Hq, Hkv, D in ZOO_HEADS]
+    k4_shapes += k4_split_rows(k4_shapes, sms)
+    k3, k4 = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for arch, Hq, Hkv, D in ZOO_HEADS:
+            k3[(name, arch)] = k3_case(gen, dtype, B, S, Hq, Hkv, D, True,
+                                       shape=arch)
+        for shape in k4_shapes:
+            row = k4_case(gen, dtype, *shape, sms)
+            if shape[-1]:
+                k4[(name, shape[0])] = row
+    return k3, k4
+
+
+def zoo_config(arch, param_dtype, layers=None):
+    """``arch`` at full width on the kernel path, its parameters in
+    ``param_dtype``, its depth cut to ``layers`` when given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, attn_impl="flash", remat=False,
+                               param_dtype=param_dtype,
+                               num_layers=layers or cfg.num_layers)
+
+
+def zoo_params(cfg):
+    """Random weights from the seed, made on the device after the previous
+    model's memory is returned; (params, seconds)."""
+    import torch
+    from repro_torch.models.api import build_model
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    sync()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    sync()
+    return params, time.perf_counter() - t0
+
+
+def phase_zoo_main(cfg, params, main_tps):
+    """The main path's workload served by ``cfg`` through run_queue (K1
+    routing, K3 in every stage forward): fails unless every stream emits
+    its 16 tokens, K1 launched once per DP window, K3 once per layer of
+    every stage forward, K4 never, and the windows and forwards are the
+    rehearsal's."""
+    from repro_torch.kernels import ops
+    serve(cfg, params, workload(cfg.vocab_size)[:1])      # warm-up run
+    ops.reset_launch_counts()
+    srv, done, wall, forwards = serve(cfg, params, workload(cfg.vocab_size))
+    counts = ops.launch_counts()
+    check_served(cfg, srv, done, counts, forwards)
+    st = srv.router.stats
+    if counts["decode_attention"] != 0:
+        raise AssertionError(f"{cfg.name} run_queue launched K4 "
+                             f"{counts['decode_attention']} times")
+    if (st.windows, forwards) != (ZOO_WINDOWS, ZOO_FORWARDS):
+        raise AssertionError(
+            f"{cfg.name} run_queue: {st.windows} windows and {forwards} "
+            f"stage forwards, the rehearsal's {ZOO_WINDOWS} and "
+            f"{ZOO_FORWARDS}")
+    toks = sum(r.metrics.tokens for r in done)
+    log({"zoo_main_path": {
+        "model": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "experts": [cfg.num_experts,
+                                            cfg.experts_per_token],
+        "param_dtype": cfg.param_dtype,
+        "activation_dtype": cfg.activation_dtype,
+        "parameters": n_parameters(params),
+        "peers": len(srv.seeker.view()), "streams": len(done),
+        "tokens_per_stream": [r.metrics.tokens for r in done],
+        "tokens": toks, "wall_s": wall, "tokens_per_s": toks / wall,
+        "gpt2_main_path_tokens_per_s": main_tps,
+        "windows": st.windows, "dp_windows": st.device_calls,
+        "stage_forwards": forwards,
+        "prefill_chunks": sum(r.metrics.prefill_chunks for r in done),
+        "launches": counts}})
+
+
+def phase_zoo_parity(cfg, params):
+    """``cfg`` cut to ZOO_PARITY_LAYERS layers, in f32 activations, served
+    through the kernels and through the plain path (``attn_impl="xla"``,
+    router backend ``torch``): tokens and every ServeMetrics field equal;
+    the router's top-k sets that differ between the two runs counted."""
+    cut = dataclasses.replace(cfg, num_layers=ZOO_PARITY_LAYERS,
+                              activation_dtype="float32")
+    cut_params = dict(params, layers=params["layers"][:ZOO_PARITY_LAYERS])
+    plain = dataclasses.replace(cut, attn_impl="xla")
+    with RouterLog() as k_log:
+        _, kdone, kwall, _ = serve(cut, cut_params, workload(cfg.vocab_size))
+    with RouterLog() as p_log:
+        _, pdone, pwall, _ = serve(plain, cut_params,
+                                   workload(cfg.vocab_size),
+                                   router_backend="torch")
+    row = {"model": cfg.name, "layers": ZOO_PARITY_LAYERS,
+           "of_layers": cfg.num_layers, "streams": len(kdone),
+           "kernel_path_s": kwall, "plain_path_s": pwall,
+           "router_calls": len(k_log.sets),
+           "router_topk_sets_differing": router_flips(k_log, p_log)}
+    for a, b in zip(kdone, pdone):
+        if a.output != b.output or a.metrics != b.metrics or \
+                a.metrics.tokens != NEW_TOKENS:
+            log({"zoo_f32_divergence": {**row, "request": a.request_id,
+                                        "kernel": a.output,
+                                        "plain": b.output}})
+            raise AssertionError(f"{cfg.name} f32 run_queue differs for "
+                                 f"stream {a.request_id}: kernels "
+                                 f"{a.output} vs plain {b.output}")
+    log({"zoo_f32_parity": {**row, "equal": True}})
+
+
+def zoo_profile(cfg, params):
+    """Where the time goes for ``cfg``: a short run_queue under the
+    profiler (``zoo_profile``) and the engine's prefill and decode
+    windows (``engine_profile``)."""
+    phase_profile(cfg, params, key="zoo_profile")
+    engine_profile(cfg.name, cfg, params, ZOO_ENGINE_GROUPS[-1][0])
+
+
+def phase_zoo_models(main_tps) -> dict:
+    """Each ZOO_ENGINE model loaded in turn (the previous one freed first):
+    ZOO_MAIN through run_queue at full width, its f32 parity and its
+    profile; then every model through the KV-cache engine (phase 11's
+    gates) and its f32 kernel-vs-plain engine parity."""
+    out = {}
+    for arch, dtype, layers in ZOO_ENGINE:
+        cfg = zoo_config(arch, dtype, layers)
+        params, init_s = zoo_params(cfg)
+        if arch == ZOO_MAIN:
+            phase_zoo_main(cfg, params, main_tps)
+            phase_zoo_parity(cfg, params)
+            zoo_profile(cfg, params)
+        row = run_engine(arch, cfg, params, ZOO_ENGINE_GROUPS)
+        full = zoo_config(arch, dtype).num_layers
+        row.update(init_s=init_s, depth=f"{cfg.num_layers} of {full} layers"
+                   + (" (cut to fit the card)" if cfg.num_layers < full
+                      else ""))
+        log({"zoo_engine": row})
+        row["f32_parity"] = engine_parity(arch, cfg, params,
+                                          ZOO_PARITY_GROUPS)
+        out[arch] = row
+        del params
+    gc.collect()
+    return out
 
 
 def card_line() -> str:
@@ -2675,6 +3002,9 @@ def main() -> int:
     k2 = phase_k2(floor)
     windows_err = phase_windows()
     k3 = phase_k3()
+    t0 = time.perf_counter()
+    phase_zoo_kernels()
+    zoo_kernels_s = time.perf_counter() - t0
 
     cfg = dataclasses.replace(get_config("gpt2-large"), attn_impl="flash",
                               remat=False)
@@ -2698,6 +3028,10 @@ def main() -> int:
     _, _, k2_counts = phase_decision()
     phase_ssr()
     phase_generate_algorithms(cfg, params)
+    t0 = time.perf_counter()
+    phase_zoo_models(tps)
+    log({"model_zoo_s": {"kernels": zoo_kernels_s,
+                         "models": time.perf_counter() - t0}})
     k4_row = k4[("bfloat16", "gpt2-large")]
     k5_row = k5["full-width"]
     k6_row = k6["full-width"]

@@ -10,18 +10,28 @@ pipeline, on PyTorch.
         --arch rwkv6-1.6b
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
         --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --windowed --disaggregate
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
+        --arch qwen3-moe-30b-a3b --reduced
 
 Port of ``repro.launch.serve``. ``--mode gtrac`` (the default): the
 window-batched router (``--windowed``, optionally ``--disaggregate``;
 G-TRAC only) or per-token ``generate`` under any ``--algorithm``.
 ``--mode engine``: the plain KV-cache ``ServingEngine`` (with
-``--attn-impl flash``, a dense model's prefill through kernel K3 and every
-decode step through kernel K4), which also serves RoPE models
-(tinyllama-1.1b), RWKV6 (rwkv6-1.6b: every prefill's WKV scan through
-kernel K5, decode as plain recurrence) and Zamba2 (zamba2-2.7b: every
-Mamba2 prefill's SSD scan through kernel K6, its shared attention block
-through K3 and K4 at head dim 80). The pipeline server is dense-only,
-as the reference's stage functions are. Runs on ``cuda`` unless
+``--attn-impl flash``, a dense or MoE model's prefill through kernel K3
+and every decode step through kernel K4), which also serves RWKV6
+(rwkv6-1.6b: every prefill's WKV scan through kernel K5, decode as plain
+recurrence) and Zamba2 (zamba2-2.7b: every Mamba2 prefill's SSD scan
+through kernel K6, its shared attention block through K3 and K4 at head
+dim 80). The pipeline server serves the decoder-only transformers, dense
+and MoE (learned positions or RoPE), whose layers the reference's stage
+functions run; it refuses the ssm, hybrid, vlm and audio families.
+Parameters are made in the config's ``param_dtype`` (f32 for every
+shipped config; neither this CLI nor the reference's has a flag for it,
+so the largest configs, granite-34b, qwen3-moe and phi3.5-moe, fit one
+80 GB card only through ``dataclasses.replace`` in a script, as
+``chip_smoke.py`` does). Runs on ``cuda`` unless
 ``--device cpu``. Weights are random, made from ``--seed`` with the
 family's ``init`` (the reference's distributions), so the tokens are
 meaningless; the routing, trust, repair and model compute are
@@ -209,11 +219,11 @@ def main(argv=None):
         ap.error("--relay rides on the gossip sync plane; add --gossip")
 
     cfg = get_config(args.arch)
-    if args.mode == "gtrac" and cfg.family != "dense":
+    if args.mode == "gtrac" and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the trust-routed pipeline server serves dense "
-            f"models only (family {cfg.family!r}); serve it with "
-            "--mode engine")
+            f"{cfg.name}: the trust-routed pipeline server serves the "
+            f"dense and moe families only (family {cfg.family!r}); serve "
+            "it with --mode engine")
     if args.reduced:
         cfg = cfg.reduced(num_layers=4)
     cfg = dataclasses.replace(cfg, remat=False, attn_impl=args.attn_impl)

@@ -8,13 +8,14 @@ port serves so far:
     model.decode_step(params, token, cache)  -> (logits, cache)
     model.make_cache(batch, capacity, device) -> empty cache
 
-The dense family (``dense``: GPT-2 Large, TinyLlama) is served by
+The dense family (``dense``: GPT-2 Large, TinyLlama, SmolLM, StarCoder2,
+Granite) and the MoE family (``moe``: qwen3-moe, phi3.5-moe) are served by
 ``models/transformer.py``, the ``ssm`` family (RWKV6) by
 ``models/rwkv6.py``, the ``hybrid`` family (Zamba2: Mamba2 blocks and a
 shared attention block) by ``models/zamba2.py``. The other families raise
-``NotImplementedError`` naming the slice they wait for: ``moe`` and
-``vlm`` (their model slices) and ``audio`` (Whisper). The training hooks
-(``loss_fn``, the dry-run input specs) wait for the trainer slice.
+``NotImplementedError`` naming the slice they wait for: ``vlm`` (M-RoPE)
+and ``audio`` (Whisper). The training hooks (``loss_fn``, the dry-run
+input specs) wait for the trainer slice.
 """
 from __future__ import annotations
 
@@ -24,24 +25,17 @@ from typing import Callable
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rwkv6, transformer, zamba2
 
-#: family -> the slice of the port that brings it
-_WAITING = {
-    "moe": "the MoE slice (models/moe.py: phi3.5-moe, qwen3-moe)",
-    "vlm": "the vlm slice (M-RoPE, qwen2-vl)",
-    "audio": "the Whisper slice (models/whisper.py)",
-}
-
-_FAMILY_MODULES = {"dense": transformer, "ssm": rwkv6, "hybrid": zamba2}
+_FAMILY_MODULES = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
+                   "hybrid": zamba2}
 
 
 def _module(cfg: ModelConfig):
-    """The module serving ``cfg``'s family; raises for the others."""
-    if cfg.family in _WAITING:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} joins "
-                                  f"the port with {_WAITING[cfg.family]}")
-    if cfg.family == "dense":
-        transformer.require_dense(cfg, rope=True)
-    return _FAMILY_MODULES[cfg.family]
+    """The module serving ``cfg``'s family; raises for the others (vlm and
+    audio name the slice they wait for: ``transformer.WAITING``)."""
+    mod = _FAMILY_MODULES.get(cfg.family, transformer)
+    if mod is transformer:
+        transformer.require_decoder(cfg)
+    return mod
 
 
 @dataclass
@@ -55,13 +49,13 @@ class Model:
 
 def make_cache(cfg: ModelConfig, batch: int, capacity: int, device=None):
     """An empty serving cache for ``cfg`` on ``device`` (``cuda`` unless
-    the caller passes another). Dense: k, v of (L, batch, capacity, Hkv, D)
-    in the activation dtype and index 0. RWKV6: its zero recurrent state
-    (``rwkv6.make_state``, independent of ``capacity``) and index 0, as the
-    reference (``rwkv6.make_cache``). Zamba2: k, v of (groups, batch,
-    capacity, Hkv, D), the conv tails and the f32 SSM states
-    (``zamba2.make_cache``) and index 0. Each family's ``make_cache``
-    resolves the device."""
+    the caller passes another). Dense and MoE: k, v of (L, batch,
+    capacity, Hkv, D) in the activation dtype and index 0. RWKV6: its zero
+    recurrent state (``rwkv6.make_state``, independent of ``capacity``)
+    and index 0, as the reference (``rwkv6.make_cache``). Zamba2: k, v of
+    (groups, batch, capacity, Hkv, D), the conv tails and the f32 SSM
+    states (``zamba2.make_cache``) and index 0. Each family's
+    ``make_cache`` resolves the device."""
     return _module(cfg).make_cache(cfg, batch, capacity, device=device)
 
 

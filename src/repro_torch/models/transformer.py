@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM (the dense family: GPT-2 Large, TinyLlama).
+"""Decoder-only transformer LM: the dense family (GPT-2 Large, TinyLlama,
+SmolLM, StarCoder2, Granite) and the MoE family (qwen3-moe, phi3.5-moe).
 
 Port of ``repro.models.transformer`` for the serving paths: ``block_forward``
 and ``forward_hidden`` (the pipeline server's stage compute), and the
@@ -6,18 +7,20 @@ KV-cache engine's ``make_cache``, ``prefill``, ``block_decode`` and
 ``decode_step``, over a parameter dict whose ``"layers"`` entry is a list
 of per-layer dicts (the reference stacks them along a leading layer axis
 for ``jax.lax.scan``; PyTorch runs eagerly, so the layers are a plain
-loop). The cache keeps the reference's layout: ``k`` and ``v`` of shape
-(L, B, capacity, Hkv, D), layer-major so that each layer's slice is a
-contiguous (B, capacity, Hkv, D) tensor for kernel K4, and ``index``, the
-number of filled positions, kept on the host as an int. Two ways to get
-parameters:
+loop). A layer's feed-forward is the MLP (``models/mlp.py``) or, for the
+``moe`` family, the expert layer (``models/moe.py``). The cache keeps the
+reference's layout: ``k`` and ``v`` of shape (L, B, capacity, Hkv, D),
+layer-major so that each layer's slice is a contiguous (B, capacity, Hkv,
+D) tensor for kernel K4, and ``index``, the number of filled positions,
+kept on the host as an int. Two ways to get parameters:
 
 * ``params_from_jax(tree)`` — the reference's parameter pytree, converted
   to numpy by the caller, becomes torch tensors with the layer stack
   unstacked along its leading axis. Layouts are unchanged.
 * ``init_params(cfg, generator, device)`` — seeded random weights with the
   reference's distributions (normal × 0.02 for dense and embedding
-  matrices, unit/zero norms), made directly on the device.
+  matrices, unit/zero norms), made directly on the device, every leaf in
+  ``cfg.param_dtype``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (Params, adtype, apply_norm,
                                        embed_tokens, init_embeddings,
                                        init_norm, logits_head)
@@ -36,21 +40,29 @@ from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.rope import apply_rotary, positional_angles
 
 
-def require_dense(cfg: ModelConfig, rope: bool = False) -> None:
-    """Raise for model families the port does not serve yet.
+#: position types the decoder serves (vlm's M-RoPE waits for its slice)
+_POS_TYPES = ("learned", "none", "rope")
+#: family -> the slice of the port that brings it
+WAITING = {
+    "vlm": "the vlm slice (M-RoPE, qwen2-vl)",
+    "audio": "the Whisper slice (models/whisper.py)",
+}
 
-    Dense models with learned positions (GPT-2) are served everywhere;
-    ``rope=True`` also admits RoPE (TinyLlama), which only the KV-cache
-    engine path (``prefill`` / ``decode_step``) serves so far."""
-    pos_ok = ("learned", "none") + (("rope",) if rope else ())
-    if cfg.family != "dense" or cfg.pos_type not in pos_ok:
+
+def require_decoder(cfg: ModelConfig) -> None:
+    """Raise for configs this module does not serve. It serves the dense
+    and MoE families with learned positions, none, or RoPE; vlm (M-RoPE)
+    and audio raise, naming the slice each waits for (RWKV6 and Zamba2
+    have modules of their own)."""
+    if cfg.family in WAITING:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} joins "
+                                  f"the port with {WAITING[cfg.family]}")
+    if cfg.family not in ("dense", "moe") or cfg.pos_type not in _POS_TYPES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / pos_type "
-            f"{cfg.pos_type!r} is not served here; the pipeline server "
-            "serves dense models with learned positions (GPT-2), the "
-            "KV-cache engine (serve --mode engine) also RoPE (TinyLlama), "
-            "RWKV6 and Zamba2; MoE, vlm and audio join the port with "
-            "their model slices")
+            f"{cfg.pos_type!r} is not served by the decoder-only "
+            "transformer (dense and moe with learned, none or rope "
+            "positions)")
 
 
 # ---------------------------------------------------------------------------
@@ -64,15 +76,18 @@ def init_block(cfg: ModelConfig, generator: torch.Generator,
         "attn": attn.init_attention(cfg, generator, device),
         "norm1": init_norm(cfg, device),
         "norm2": init_norm(cfg, device),
-        "ffn": init_mlp(cfg, generator, device),
+        "ffn": (moe_mod.init_moe(cfg, generator, device)
+                if cfg.family == "moe" else init_mlp(cfg, generator, device)),
     }
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Params:
     """Random weights from ``generator`` on ``device``: the reference's
-    ``init`` distributions, not its draws."""
-    require_dense(cfg, rope=True)
+    ``init`` distributions, not its draws, every leaf in
+    ``cfg.param_dtype``. Each matrix is drawn in f32 and cast on its own,
+    so the largest transient is one f32 matrix."""
+    require_decoder(cfg)
     return {
         "embed": init_embeddings(cfg, generator, device),
         "layers": [init_block(cfg, generator, device)
@@ -108,9 +123,10 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Params:
     """The reference's parameter pytree (leaves as numpy arrays) -> this
     package's parameter dict on ``device`` (``cuda`` unless the caller
     passes another; ``resolve_device``). Serves every family the port
-    serves: the dense transformer and RWKV6 (``embed`` / ``layers`` /
-    ``final_norm``) and Zamba2 (``embed`` / ``mamba`` / ``shared`` /
-    ``final_norm``).
+    serves: the dense and MoE transformer and RWKV6 (``embed`` /
+    ``layers`` / ``final_norm``; an MoE layer's ``ffn`` holds the router
+    and the (E, d, f) / (E, f, d) expert stacks) and Zamba2 (``embed`` /
+    ``mamba`` / ``shared`` / ``final_norm``).
 
     ``layers`` and ``mamba`` are stacked along a leading layer axis in the
     reference; each becomes a list with one dict per layer. Every other
@@ -131,8 +147,16 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def _ffn(cfg: ModelConfig, p: Params, x):
+    """The layer's feed-forward: (y, aux), aux the MoE load-balance loss
+    (a 0-d f32 tensor) and 0.0 for the dense MLP."""
+    if cfg.family == "moe":
+        return moe_mod.apply_moe(cfg, p, x, return_aux=True)
+    return apply_mlp(cfg, p, x), 0.0
+
+
 def block_forward(cfg: ModelConfig, p: Params, x, angles=None):
-    """Full-sequence (prefill) block. Returns (x, (k, v))."""
+    """Full-sequence (prefill) block. Returns (x, (k, v, aux))."""
     h = apply_norm(cfg, p["norm1"], x)
     q, k, v = attn.qkv_proj(cfg, p["attn"], h)
     if angles is not None:
@@ -141,7 +165,8 @@ def block_forward(cfg: ModelConfig, p: Params, x, angles=None):
     o = attn.attend(cfg, q, k, v, causal=True, window=cfg.sliding_window)
     x = x + attn.out_proj(cfg, p["attn"], o)
     h = apply_norm(cfg, p["norm2"], x)
-    return x + apply_mlp(cfg, p["ffn"], h), (k, v)
+    y, aux = _ffn(cfg, p["ffn"], h)
+    return x + y, (k, v, aux)
 
 
 def block_decode(cfg: ModelConfig, p: Params, x, angles, cache_k, cache_v,
@@ -161,7 +186,8 @@ def block_decode(cfg: ModelConfig, p: Params, x, angles, cache_k, cache_v,
                            window=cfg.sliding_window)
     x = x + attn.out_proj(cfg, p["attn"], o)
     h = apply_norm(cfg, p["norm2"], x)
-    return x + apply_mlp(cfg, p["ffn"], h), cache_k, cache_v
+    y, _ = _ffn(cfg, p["ffn"], h)
+    return x + y, cache_k, cache_v
 
 
 def _angles(cfg: ModelConfig, positions):
@@ -176,8 +202,9 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
 
     ``positions`` (B, S) feed learned positions and RoPE (default
     0..S-1). With ``collect_kv`` returns (hidden, (k, v)) with k, v stacked
-    per layer: (L, B, S, Hkv, D)."""
-    require_dense(cfg, rope=True)
+    per layer: (L, B, S, Hkv, D). The MoE load-balance loss, which the
+    reference returns too, is a training quantity and is dropped here."""
+    require_decoder(cfg)
     x = embed_tokens(cfg, params["embed"], tokens,
                      positions if cfg.pos_type == "learned" else None)
     B, S = tokens.shape
@@ -187,7 +214,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
     angles = _angles(cfg, positions)
     ks, vs = [], []
     for lp in params["layers"]:
-        x, (k, v) = block_forward(cfg, lp, x, angles)
+        x, (k, v, _) = block_forward(cfg, lp, x, angles)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -238,7 +265,7 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache,
     returns (logits (B,1,V), cache) with the new K/V written in place and
     the index advanced. The index is a host int, so no step reads a device
     scalar back."""
-    require_dense(cfg, rope=True)
+    require_decoder(cfg)
     index = int(cache["index"])
     B = token.shape[0]
     dev = token.device

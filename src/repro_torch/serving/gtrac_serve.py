@@ -61,7 +61,8 @@ from repro_torch.core.types import HopReport
 from repro_torch.distributed.pipeline import StagePartition
 from repro_torch.models.common import (apply_norm, embed_tokens, logits_head,
                                        strict_fp32_matmul)
-from repro_torch.models.transformer import block_forward, require_dense
+from repro_torch.models.rope import positional_angles
+from repro_torch.models.transformer import block_forward, require_decoder
 from repro_torch.obs.metrics import MetricsRegistry, percentiles
 from repro_torch.obs.trace import NOOP_TRACER, TraceBuffer, Tracer
 from repro_torch.serving.api import SubmitSpec
@@ -84,8 +85,12 @@ def make_stage_fns(cfg: ModelConfig, params, partition: StagePartition):
 
     A payload is ``(tokens (B, S) int64, x)`` with ``x`` None at stage 0;
     the last stage returns ``(tokens, logits (B, 1, V))`` of the last
-    position. Runs under ``torch.inference_mode``."""
-    require_dense(cfg)
+    position. Every payload holds its stream's whole prefix, so positions
+    run 0..S-1 in every hop: a RoPE stage builds its angles from them, as
+    the reference does in each stage. Serves the dense and MoE decoders
+    (an MoE layer's load-balance loss is dropped, as the reference's stage
+    drops it). Runs under ``torch.inference_mode``."""
+    require_decoder(cfg)
     n = partition.n_stages
 
     def stage_fn(i: int):
@@ -95,10 +100,13 @@ def make_stage_fns(cfg: ModelConfig, params, partition: StagePartition):
         @torch.inference_mode()
         def fn(payload):
             tokens, x = payload                     # x may be None at stage 0
+            B, S = tokens.shape
             if i == 0:
                 x = embed_tokens(cfg, params["embed"], tokens)
+            pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+            angles = positional_angles(cfg, pos)    # None unless rotary
             for lp in layers:
-                x, _ = block_forward(cfg, lp, x)
+                x, _ = block_forward(cfg, lp, x, angles)
             if i == n - 1:
                 x = apply_norm(cfg, params["final_norm"], x)
                 return tokens, logits_head(cfg, params["embed"], x[:, -1:, :])

@@ -1,4 +1,5 @@
-"""The CPU rehearsal of ``chip_smoke.py`` phase 17 (``edge_control``).
+"""The CPU rehearsals of ``chip_smoke.py`` phases 17 (``edge_control``)
+and 18 (``model_zoo``, below).
 
 The phase's hedge and worker-drill counts come from the simulation, which
 draws nothing that depends on the model's width, so the phase runs here
@@ -73,3 +74,80 @@ def test_phase17_rehearsal(monkeypatch, capsys):
     assert tuple(chaos["tokens_per_stream"]) == cs.EDGE_CHAOS_TOKENS
     assert chaos["health"]["worker_restarts"] == 1
     assert rows["edge_control_step_ms"] and cs.shard_workers() == []
+
+
+#: the tiny width phase 18 is rehearsed at (every arch at its own depth)
+TINY = dict(d_model=32, num_heads=2, num_kv_heads=1, head_dim=16, d_ff=64,
+            vocab_size=128, max_position=4096)
+
+
+def test_phase18_rehearsal(monkeypatch, capsys):
+    """Phase 18 (``model_zoo``) at a tiny width and each model's full
+    depth, on the kernels' plain versions (its kernel checks need the
+    card): qwen3-moe through ``run_queue`` on the 48-layer topology serves
+    16 tokens per stream in ``ZOO_WINDOWS`` windows, each running the DP
+    once (K1), with ``ZOO_FORWARDS`` stage forwards (K3 = forwards x 2
+    layers, K4 = 0); the f32 kernel-vs-plain run_queue and engine parities
+    hold; every engine model runs one prefill per prompt group and 31
+    decode steps per group, so K3 = layers x 2 and K4 = layers x 62. The
+    engine's prompts are shortened (the counts do not depend on their
+    length). The CPU launches no kernel, so the launch gates are replaced
+    by the launches the path needs."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    orig = cs.zoo_config
+    seen = {}
+
+    def tiny(arch, dtype, layers=None):
+        cfg = orig(arch, dtype, layers)
+        return dataclasses.replace(
+            cfg, num_experts=min(cfg.num_experts, 8),
+            experts_per_token=min(cfg.experts_per_token, 2), **TINY)
+
+    def check_served(cfg, srv, done, counts, forwards):
+        per_stage = cfg.num_layers // srv.partition.n_stages
+        seen["main"] = dict(
+            windows=srv.router.stats.windows,
+            k1=srv.router.stats.device_calls, k3=forwards * per_stage,
+            k4=counts["decode_attention"],
+            tokens=[r.metrics.tokens for r in done])
+
+    def check_engine_launches(arch, cfg, eng, counts):
+        seen[arch] = cs.expected_launches(cfg, eng.prefills,
+                                          eng.decode_steps)
+
+    monkeypatch.setattr(cs, "zoo_config", tiny)
+    monkeypatch.setattr(cs, "check_served", check_served)
+    monkeypatch.setattr(cs, "check_engine_launches", check_engine_launches)
+    monkeypatch.setattr(cs, "zoo_profile", lambda cfg, params: None)
+    monkeypatch.setattr(cs, "ZOO_ENGINE_GROUPS", ((8, 4), (24, 4)))
+    monkeypatch.setattr(cs, "ZOO_PARITY_GROUPS", ((8, 2), (24, 2)))
+    cs.phase_zoo_models(0.0)
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        if line.startswith("{"):
+            obj = json.loads(line)
+            key = next(iter(obj))
+            rows.setdefault(key, []).append(obj[key])
+    assert seen["main"] == dict(windows=cs.ZOO_WINDOWS, k1=cs.ZOO_WINDOWS,
+                                k3=2 * cs.ZOO_FORWARDS, k4=0,
+                                tokens=[cs.NEW_TOKENS] * 4)
+    assert (cs.ZOO_WINDOWS, cs.ZOO_FORWARDS) == (34, 1608)
+    main = rows["zoo_main_path"][0]
+    assert main["peers"] == 144 and main["layers"] == 48
+    assert rows["zoo_f32_parity"][0]["equal"]
+    layers = {"qwen3-moe-30b-a3b": 48, "smollm-360m": 32,
+              "starcoder2-7b": 32, "granite-34b": 88,
+              "phi3.5-moe-42b-a6.6b": 24}
+    for arch, L in layers.items():
+        assert seen[arch] == {"flash_attention": 2 * L,
+                              "decode_attention": 62 * L,
+                              "wkv6_chunked": 0, "ssd_chunked": 0}, arch
+    engines = {r["arch"]: r for r in rows["zoo_engine"]}
+    assert set(engines) == set(layers)
+    assert engines["phi3.5-moe-42b-a6.6b"]["depth"].startswith("24 of 32")
+    assert all(r["tokens"] == 8 * cs.ENGINE_TOKENS for r in engines.values())
+    parity = {r["model"]: r for r in rows["engine_f32_parity"]}
+    assert all(r["equal"] for r in parity.values()) and \
+        set(parity) == set(layers)
+    assert parity["qwen3-moe-30b-a3b"]["router_topk_sets_differing"] == 0

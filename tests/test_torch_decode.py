@@ -459,11 +459,34 @@ def test_make_cache_layout():
 
 
 def test_pipeline_server_still_refuses_rope():
-    """RoPE is served by the engine path only; the pipeline server's stage
-    functions keep raising for it."""
+    """The pipeline server's stage functions serve RoPE now (they refused
+    it until the decoder zoo joined the port): on tinyllama-1.1b.reduced
+    (4 layers in 2 stages, the reference's parameters) each stage's output
+    (hidden states, then the last position's logits) matches the
+    reference's jitted stage within 2e-5 (f32) / 2e-2 (bf16). Positions
+    run 0..S-1 in every stage, so RoPE needs no offset across hops."""
+    from repro.distributed.pipeline import StagePartition as JPartition
+    from repro.serving.gtrac_serve import make_stage_fns as jmake_stage_fns
     from repro_torch.distributed.pipeline import StagePartition
     from repro_torch.serving.gtrac_serve import make_stage_fns
-    tcfg = tget_config("tinyllama-1.1b").reduced(vocab_size=64)
-    params = ttf.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="rope"):
-        make_stage_fns(tcfg, params, StagePartition.uniform(2, 1))
+    arch = "tinyllama-1.1b"
+    red = dict(REDUCED[arch], num_layers=4)
+    jp = jax.tree.map(np.asarray, jbuild_model(
+        get_config(arch).reduced(**red)).init(jax.random.PRNGKey(3)))
+    toks = np.random.default_rng(3).integers(1, 128, size=(2, 11))
+    for act in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config(arch).reduced(**red),
+                                  activation_dtype=act)
+        tcfg = dataclasses.replace(tget_config(arch).reduced(**red),
+                                   activation_dtype=act, attn_impl="flash")
+        assert tcfg.pos_type == "rope"
+        jfns = jmake_stage_fns(cfg, jp, JPartition.uniform(4, 2))
+        tfns = make_stage_fns(tcfg, params_from_jax(jp, device="cpu"),
+                              StagePartition.uniform(4, 2))
+        jpay = (jnp.asarray(toks, jnp.int32), None)
+        tpay = (torch.from_numpy(toks), None)
+        for jf, tf in zip(jfns, tfns):
+            jpay, tpay = jf(jpay), tf(tpay)
+            np.testing.assert_allclose(_np(tpay[1]), _np(jpay[1]),
+                                       atol=MODEL_TOL[act], err_msg=act)
+        assert tpay[1].shape == (2, 1, 128)

@@ -227,10 +227,21 @@ def test_build_model_serves_dense_and_names_the_rest():
     assert "pos" not in params["embed"]
     assert model.make_cache(2, 5, device="cpu")["k"].shape == \
         (2, 2, 5, 2, 32)
-    for fam, slice_name in (("moe", "MoE"), ("vlm", "vlm"),
-                            ("audio", "Whisper")):
+    for fam, slice_name in (("vlm", "vlm"), ("audio", "Whisper")):
         with pytest.raises(NotImplementedError, match=slice_name):
             tapi.build_model(dataclasses.replace(tcfg, family=fam))
+    # the moe family is served since the MoE slice: its layers carry the
+    # router and the expert stacks, its cache is the dense layout
+    moe_cfg = tget_config("qwen3-moe-30b-a3b").reduced(vocab_size=64)
+    moe = tapi.build_model(moe_cfg)
+    mp = moe.init(torch.Generator().manual_seed(0), "cpu")
+    E, d, f = moe_cfg.num_experts, moe_cfg.d_model, moe_cfg.d_ff
+    ffn = mp["layers"][0]["ffn"]
+    assert set(ffn) == {"router", "wi", "wg", "wo"}
+    assert ffn["router"].shape == (d, E) and ffn["wo"].shape == (E, f, d)
+    assert ffn["wi"].shape == ffn["wg"].shape == (E, d, f)
+    assert moe.make_cache(2, 5, device="cpu")["k"].shape == \
+        (2, 2, 5, 2, 32)
     # the ssm family (RWKV6) and the hybrid family (Zamba2) are served
     # since their slices landed
     rwkv = tapi.build_model(tget_config("rwkv6-1.6b").reduced(vocab_size=64))
