@@ -729,14 +729,17 @@ def phase_k2(floor):
     return rows
 
 
-def k3_bound_ms(B, S, Hq, Hkv, D, dtype, causal) -> tuple:
+def k3_bound_ms(B, S, Hq, Hkv, D, dtype, causal, Sk=None) -> tuple:
     """Least time for attention on this card: q, k, v read once and the
     output written once, against the multiply-adds of QK^T and PV over the
-    visible (query, key) pairs at the peak rate of the input type."""
+    visible (query, key) pairs at the peak rate of the input type. ``Sk``
+    keys (default S) against S queries; causal pairs are key <= query,
+    both counted from 0."""
     import torch
+    Sk = Sk or S
     size = 2 if dtype == torch.bfloat16 else 4
-    nbytes = size * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
-    pairs = S * (S + 1) // 2 if causal else S * S
+    nbytes = size * (2 * B * S * Hq * D + 2 * B * Sk * Hkv * D)
+    pairs = sum(min(i + 1, Sk) for i in range(S)) if causal else S * Sk
     flops = 4 * B * Hq * D * pairs
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -760,21 +763,22 @@ K6_KERNELS = ("ssd_prep_kernel<", "ssd_scan_kernel<")
 
 
 def k3_case(gen, dtype, B, S, Hq, Hkv, D, causal, timed=False,
-            shape=None) -> dict:
+            shape=None, Sk=None) -> dict:
     """K3 against its plain version on one shape (random normal q, k, v
-    from ``gen``): fails beyond 2e-4 (f32) / 2e-2 (bf16) absolute. With
-    ``timed``, the kernel, its plain version and SDPA per call, and the
-    bound; with ``shape`` (a model's name) also the kernel's and SDPA's
-    device time."""
+    from ``gen``; ``Sk`` keys, default S): fails beyond 2e-4 (f32) / 2e-2
+    (bf16) absolute. With ``timed``, the kernel, its plain version and
+    SDPA per call, and the bound; with ``shape`` (a model's name) also the
+    kernel's and SDPA's device time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    Sk = Sk or S
     q = torch.randn((B, S, Hq, D), generator=gen, device=DEVICE,
                     dtype=torch.float32).to(dtype)
-    k = torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE,
+    k = torch.randn((B, Sk, Hkv, D), generator=gen, device=DEVICE,
                     dtype=torch.float32).to(dtype)
-    v = torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE,
+    v = torch.randn((B, Sk, Hkv, D), generator=gen, device=DEVICE,
                     dtype=torch.float32).to(dtype)
     got = fa.flash_attention_cuda(q, k, v, causal=causal)
     want = fa.flash_attention_plain(q, k, v, causal=causal)
@@ -782,12 +786,14 @@ def k3_case(gen, dtype, B, S, Hq, Hkv, D, causal, timed=False,
     name = str(dtype).replace("torch.", "")
     if not err <= tol[dtype]:
         raise AssertionError(
-            f"K3 {name} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+            f"K3 {name} B={B} S={S} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} "
             f"causal={causal}: max abs err {err} > {tol[dtype]}")
     # the largest |o| sets the bf16 step the error is read against
     row = {"dtype": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv,
            "D": D, "causal": causal, "max_abs_err": err,
            "max_abs_out": float(want.float().abs().max())}
+    if Sk != S:
+        row["Sk"] = Sk
     if timed or shape:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         row["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(
@@ -800,7 +806,7 @@ def k3_case(gen, dtype, B, S, Hq, Hkv, D, causal, timed=False,
                 qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv)
         row["library_ms"] = cuda_ms(sdpa, iters=50)
         row["bound_ms"], row["bound_by"] = k3_bound_ms(
-            B, S, Hq, Hkv, D, dtype, causal)
+            B, S, Hq, Hkv, D, dtype, causal, Sk)
         if shape:
             row["shape"] = shape
             row["device_ms_per_launch"] = device_ms(
@@ -2086,13 +2092,14 @@ def k4_case(gen, dtype, name, B, S, Hq, Hkv, D, lens, timed,
 
 def k4_split_rows(shapes, sms) -> list:
     """Each timed shape again with kv_len = 1 (every split past the first
-    empty), on the first split boundary, = S and in the middle."""
+    empty), on the first split boundary (S when one split holds every
+    row), = S and in the middle."""
     from repro_torch.kernels import decode_attention as da
     out = []
     for name, B, S, Hq, Hkv, D, _, _ in shapes:
         _, bound = da.split_plan(S, B, Hkv, sms)
         out.append((name + "-splits", B, S, Hq, Hkv, D,
-                    (1, bound, S, S // 2 + 3)[:B], False))
+                    (1, min(bound, S), S, S // 2 + 3)[:B], False))
     return out
 
 
@@ -2431,17 +2438,22 @@ def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
             "ssd_chunked": 0}
 
 
+def check_launches(tag, counts, want) -> None:
+    """Every kernel in ``want`` launched exactly as often as the path
+    needs."""
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{tag}: {name} launched {counts[name]} "
+                                 f"times, the path needs {n}")
+
+
 def check_engine_launches(arch, cfg, eng, counts) -> None:
     """Every kernel launched exactly as the engine's path needs
     (``expected_launches``)."""
-    want = expected_launches(cfg, eng.prefills, eng.decode_steps)
-    for name, n in want.items():
-        if counts[name] != n:
-            raise AssertionError(
-                f"engine {arch}: {name} launched {counts[name]} times, "
-                f"expected {n} ({eng.prefills} prefills, "
-                f"{eng.decode_steps} decode steps, "
-                f"{cfg.num_layers} layers)")
+    check_launches(f"engine {arch} ({eng.prefills} prefills, "
+                   f"{eng.decode_steps} decode steps, {cfg.num_layers} "
+                   "layers)", counts,
+                   expected_launches(cfg, eng.prefills, eng.decode_steps))
 
 
 def run_engine(arch, cfg, params, groups) -> dict:
@@ -2861,12 +2873,13 @@ def zoo_params(cfg):
     return params, time.perf_counter() - t0
 
 
-def phase_zoo_main(cfg, params, main_tps):
+def phase_zoo_main(cfg, params, main_tps, want=(ZOO_WINDOWS, ZOO_FORWARDS),
+                   key="zoo_main_path"):
     """The main path's workload served by ``cfg`` through run_queue (K1
     routing, K3 in every stage forward): fails unless every stream emits
     its 16 tokens, K1 launched once per DP window, K3 once per layer of
     every stage forward, K4 never, and the windows and forwards are the
-    rehearsal's."""
+    rehearsal's (``want``); logged under ``key``."""
     from repro_torch.kernels import ops
     serve(cfg, params, workload(cfg.vocab_size)[:1])      # warm-up run
     ops.reset_launch_counts()
@@ -2877,13 +2890,12 @@ def phase_zoo_main(cfg, params, main_tps):
     if counts["decode_attention"] != 0:
         raise AssertionError(f"{cfg.name} run_queue launched K4 "
                              f"{counts['decode_attention']} times")
-    if (st.windows, forwards) != (ZOO_WINDOWS, ZOO_FORWARDS):
+    if (st.windows, forwards) != tuple(want):
         raise AssertionError(
             f"{cfg.name} run_queue: {st.windows} windows and {forwards} "
-            f"stage forwards, the rehearsal's {ZOO_WINDOWS} and "
-            f"{ZOO_FORWARDS}")
+            f"stage forwards, the rehearsal's {want[0]} and {want[1]}")
     toks = sum(r.metrics.tokens for r in done)
-    log({"zoo_main_path": {
+    log({key: {
         "model": cfg.name, "layers": cfg.num_layers,
         "d_model": cfg.d_model, "experts": [cfg.num_experts,
                                             cfg.experts_per_token],
@@ -2900,11 +2912,12 @@ def phase_zoo_main(cfg, params, main_tps):
         "launches": counts}})
 
 
-def phase_zoo_parity(cfg, params):
+def phase_zoo_parity(cfg, params, key="zoo_f32_parity"):
     """``cfg`` cut to ZOO_PARITY_LAYERS layers, in f32 activations, served
     through the kernels and through the plain path (``attn_impl="xla"``,
     router backend ``torch``): tokens and every ServeMetrics field equal;
-    the router's top-k sets that differ between the two runs counted."""
+    the router's top-k sets that differ between the two runs counted
+    (MoE); logged under ``key``."""
     cut = dataclasses.replace(cfg, num_layers=ZOO_PARITY_LAYERS,
                               activation_dtype="float32")
     cut_params = dict(params, layers=params["layers"][:ZOO_PARITY_LAYERS])
@@ -2923,13 +2936,13 @@ def phase_zoo_parity(cfg, params):
     for a, b in zip(kdone, pdone):
         if a.output != b.output or a.metrics != b.metrics or \
                 a.metrics.tokens != NEW_TOKENS:
-            log({"zoo_f32_divergence": {**row, "request": a.request_id,
-                                        "kernel": a.output,
-                                        "plain": b.output}})
+            log({"f32_divergence": {**row, "request": a.request_id,
+                                    "kernel": a.output,
+                                    "plain": b.output}})
             raise AssertionError(f"{cfg.name} f32 run_queue differs for "
                                  f"stream {a.request_id}: kernels "
                                  f"{a.output} vs plain {b.output}")
-    log({"zoo_f32_parity": {**row, "equal": True}})
+    log({key: {**row, "equal": True}})
 
 
 def zoo_profile(cfg, params):
@@ -2965,6 +2978,282 @@ def phase_zoo_models(main_tps) -> dict:
         del params
     gc.collect()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the last two model families (Qwen2-VL and Whisper)
+# ---------------------------------------------------------------------------
+
+
+VLM = "qwen2-vl-7b"
+AUDIO = "whisper-large-v3"
+#: K3 at the new modes: (name, B, Sq, Sk, Hq, Hkv, D, causal): Whisper's
+#: non-causal encoder, its cross-attention at prefill (the 4-token prompt)
+#: and at a decode step (one query row), Qwen2-VL's 2048-token prefill
+VA_K3 = (("whisper-encoder", 4, 1500, 1500, 20, 20, 64, False),
+         ("whisper-cross", 4, 4, 1500, 20, 20, 64, False),
+         ("whisper-decode-cross", 4, 1, 1500, 20, 20, 64, False),
+         ("qwen2-vl-7b", 4, 2048, 2048, 28, 4, 128, True))
+#: Qwen2-VL's image path: batch, the merged patch grid (H, W) of one image
+#: (Sv = H x W = min(1024, S // 4) at S = 2048, as ``prefill_specs``) and
+#: the text tokens after it; greedy decode steps after the prefill
+VLM_IMAGE = (4, (16, 32), 1536)
+VLM_DECODE = 32
+#: Whisper: batch, stub frames, prompt tokens, new tokens (the first from
+#: the prefill, then one per decode step)
+AUDIO_RUN = (4, 1500, 4, 32)
+#: layers kept (of 28) in Qwen2-VL's f32 kernel-vs-plain comparisons
+VLM_PARITY_LAYERS = 8
+#: run_queue's windows and stage forwards for the main workload on the
+#: 28-layer topology (14 stages x 6 replicas), from the CPU rehearsal of
+#: this phase
+VLM_WINDOWS = 34
+VLM_FORWARDS = 938
+
+
+def phase_vlm_audio_kernels():
+    """K3 in Whisper's modes (non-causal; Sq = 4 and 1 against 1500 keys)
+    and at Qwen2-VL's prefill (G = 7, D = 128), K4 at Qwen2-VL's engine
+    cache (2144 rows) and at Whisper's decode cache (prompt + new tokens
+    rows), against their plain versions, bf16 and f32, each timed beside
+    SDPA and the bound; K4 also with kv_len on a split boundary."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, _, prompt, new = AUDIO_RUN
+    cap = 2048 + ENGINE_TOKENS + 64           # ServingEngine's capacity
+    k4_shapes = [(VLM, 4, cap, 28, 4, 128, (1, 37, 2048 + ENGINE_TOKENS,
+                                            cap), True),
+                 (AUDIO, B, prompt + new, 20, 20, 64,
+                  (prompt + 1, prompt + new // 2, prompt + new - 1,
+                   prompt + new), True)]
+    k4_shapes += k4_split_rows(k4_shapes, sms)
+    k3, k4 = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for tag, b, sq, sk, hq, hkv, d, causal in VA_K3:
+            k3[(name, tag)] = k3_case(gen, dtype, b, sq, hq, hkv, d, causal,
+                                      shape=tag, Sk=sk)
+        for shape in k4_shapes:
+            row = k4_case(gen, dtype, *shape, sms)
+            if shape[-1]:
+                k4[(name, shape[0])] = row
+    return k3, k4
+
+
+def image_positions(B, grid, text):
+    """(3, B, Sv + text) M-RoPE positions by Qwen2-VL's rope-index rule
+    for one image of ``grid`` = (H, W) merged patches (t = 0, h = i // W,
+    w = i % W) followed by ``text`` tokens at max + 1 + j on every
+    stream."""
+    import torch
+    H, W = grid
+    i = torch.arange(H * W, device=DEVICE)
+    img = torch.stack([torch.zeros_like(i), i // W, i % W])
+    txt = (img.max() + 1 + torch.arange(text, device=DEVICE)).expand(3, text)
+    return torch.cat([img, txt], dim=1)[:, None].expand(3, B, H * W + text)
+
+
+def vlm_image_run(cfg, params, steps: int) -> dict:
+    """Qwen2-VL's image path through the model API: VLM_IMAGE's stub patch
+    embeddings (normal x 0.02, the token embeddings' scale) and text
+    tokens from the seed, ``prefill`` with the three-stream positions,
+    then ``steps`` greedy ``decode_step``s of the module at continued
+    positions. Returns the tokens (the prefill's, then one per step) and
+    the times."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import adtype
+    B, grid, text = VLM_IMAGE
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    toks = torch.randint(1, cfg.vocab_size, (B, text), generator=gen,
+                         device=DEVICE)
+    patches = (0.02 * torch.randn((B, grid[0] * grid[1], cfg.d_model),
+                                  generator=gen, device=DEVICE)
+               ).to(adtype(cfg))
+    pos = image_positions(B, grid, text)
+    S = pos.shape[-1]
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = build_model(cfg).prefill(
+            params, tokens=toks, prefix_embeds=patches, positions=pos,
+            capacity=S + steps)
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        sync()
+        prefill_s = time.perf_counter() - t0
+        out, step_s = [cur], []
+        nxt = int(pos.max()) + 1
+        for t in range(steps):
+            p3 = torch.full((3, B, 1), nxt + t, device=DEVICE)
+            t0 = time.perf_counter()
+            logits, cache = transformer.decode_step(cfg, params, cur, cache,
+                                                    positions=p3)
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            out.append(cur)
+    return {"tokens": torch.cat(out, dim=1).tolist(),
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step_median": sorted(step_s)[steps // 2] * 1e3,
+            "wall_s": prefill_s + sum(step_s), "index": cache["index"],
+            "S_total": S}
+
+
+def audio_run(cfg, params) -> dict:
+    """Whisper through the model API: AUDIO_RUN's stub frames (standard
+    normal) and prompt from the seed, ``prefill(tokens, frames,
+    capacity)``, then greedy ``decode_step``s to the new-token count.
+    Returns the tokens, the times and the prefill cache's bytes."""
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import adtype
+    B, S_enc, prompt, new = AUDIO_RUN
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    frames = torch.randn((B, S_enc, cfg.d_model), generator=gen,
+                         device=DEVICE).to(adtype(cfg))
+    toks = torch.randint(1, cfg.vocab_size, (B, prompt), generator=gen,
+                         device=DEVICE)
+    model = build_model(cfg)
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, tokens=toks, frames=frames,
+                                      capacity=prompt + new)
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        sync()
+        prefill_s = time.perf_counter() - t0
+        nbytes = cache_nbytes(cache)
+        out, step_s = [cur], []
+        for _ in range(new - 1):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cur, cache)
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            out.append(cur)
+    return {"tokens": torch.cat(out, dim=1).tolist(),
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step_median": sorted(step_s)[len(step_s) // 2]
+            * 1e3, "wall_s": prefill_s + sum(step_s),
+            "decode_steps": len(step_s), "cache_bytes": nbytes}
+
+
+def f32_token_parity(tag, cfg, params, run) -> dict:
+    """``run(cfg, params)`` in f32 activations through the kernels and
+    through the plain path (``attn_impl="xla"``): the tokens must be
+    equal."""
+    cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+    k = run(cfg32, params)
+    p = run(dataclasses.replace(cfg32, attn_impl="xla"), params)
+    if k["tokens"] != p["tokens"]:
+        raise AssertionError(f"{tag} f32 tokens differ: kernels "
+                             f"{k['tokens']} vs plain {p['tokens']}")
+    row = {"model": tag, "layers": cfg.num_layers,
+           "streams": len(k["tokens"]), "tokens": len(k["tokens"][0]),
+           "equal": True}
+    log({"vlm_audio_f32_parity": row})
+    return row
+
+
+def phase_vlm(main_tps) -> dict:
+    """Qwen2-VL at full width (f32 parameters): phase 3's workload through
+    run_queue (text: each stage builds M-RoPE angles from one stream) and
+    its f32 kernel-vs-plain parity at VLM_PARITY_LAYERS layers; the engine
+    on phase 11's workload (phase 11's gates); the image path through the
+    model API (K3 once per layer at prefill, K4 once per layer of every
+    decode step, K1 never) and its f32 parity at VLM_PARITY_LAYERS
+    layers."""
+    from repro_torch.kernels import ops
+    cfg = zoo_config(VLM, "float32")
+    params, init_s = zoo_params(cfg)
+    phase_zoo_main(cfg, params, main_tps, want=(VLM_WINDOWS, VLM_FORWARDS),
+                   key="vlm_main_path")
+    phase_zoo_parity(cfg, params, key="vlm_f32_parity")
+    row = run_engine(VLM, cfg, params, ZOO_ENGINE_GROUPS)
+    row["init_s"] = init_s
+    log({"vlm_engine": row})
+    vlm_image_run(cfg, params, 2)                      # warm-up
+    ops.reset_launch_counts()
+    image = vlm_image_run(cfg, params, VLM_DECODE)
+    counts = ops.launch_counts()
+    L = cfg.num_layers
+    check_launches(f"{VLM} image path", counts,
+                   {"flash_attention": L, "decode_attention": L * VLM_DECODE,
+                    "tropical_route_kbest": 0})
+    B, grid, text = VLM_IMAGE
+    if image["index"] != image["S_total"] + VLM_DECODE or \
+            any(len(t) != VLM_DECODE + 1 for t in image["tokens"]):
+        raise AssertionError(f"{VLM} image path: index {image['index']}, "
+                             f"tokens {image['tokens']}")
+    tokens = B * (VLM_DECODE + 1)
+    log({"vlm_image": {
+        "model": VLM, "batch": B, "patches": grid[0] * grid[1],
+        "grid": list(grid), "text": text, "S_total": image["S_total"],
+        "decode_steps": VLM_DECODE, "prefill_ms": image["prefill_ms"],
+        "decode_ms_per_step_median": image["decode_ms_per_step_median"],
+        "tokens": tokens, "tokens_per_s": tokens / image["wall_s"],
+        "launches": counts}})
+    cut = dataclasses.replace(cfg, num_layers=VLM_PARITY_LAYERS)
+    cut_params = dict(params, layers=params["layers"][:VLM_PARITY_LAYERS])
+    f32_token_parity(f"{VLM} image path", cut, cut_params,
+                     lambda c, p: vlm_image_run(c, p, VLM_DECODE))
+    del params
+    return row
+
+
+def phase_audio() -> dict:
+    """Whisper at full width (f32 parameters, 1.53 B): AUDIO_RUN through
+    ``prefill`` and ``decode_step``. Fails unless K3 launched 3 x layers
+    at prefill (encoder, decoder, cross) and once per layer of every
+    decode step (cross), K4 once per layer of every decode step, the
+    prefill cache holds exactly its four tensors (self K/V at the
+    capacity, cross K/V at the frames), every stream gets its tokens, and
+    the f32 tokens of the kernel and plain paths are equal."""
+    from repro_torch.kernels import ops
+    cfg = zoo_config(AUDIO, "float32")
+    params, init_s = zoo_params(cfg)
+    B, S_enc, prompt, new = AUDIO_RUN
+    audio_run(cfg, params)                             # warm-up
+    ops.reset_launch_counts()
+    run = audio_run(cfg, params)
+    counts = ops.launch_counts()
+    L, steps = cfg.num_layers, run["decode_steps"]
+    check_launches(f"{AUDIO} prefill + {steps} decode steps", counts,
+                   {"flash_attention": (cfg.enc_layers + 2 * L) + L * steps,
+                    "decode_attention": L * steps,
+                    "tropical_route_kbest": 0})
+    size = 2 if cfg.activation_dtype == "bfloat16" else 4
+    want = 2 * L * B * (prompt + new + S_enc) * cfg.num_kv_heads * \
+        cfg.head_dim * size + 4
+    if run["cache_bytes"] != want:
+        raise AssertionError(f"{AUDIO}: cache of {run['cache_bytes']} "
+                             f"bytes, its layout holds {want}")
+    if any(len(t) != new or not all(0 <= x < cfg.vocab_size for x in t)
+           for t in run["tokens"]):
+        raise AssertionError(f"{AUDIO}: tokens {run['tokens']}")
+    row = {"model": AUDIO, "layers": [cfg.enc_layers, L],
+           "d_model": cfg.d_model, "parameters": n_parameters(params),
+           "init_s": init_s, "batch": B, "frames": S_enc, "prompt": prompt,
+           "new_tokens": new, "prefill_ms": run["prefill_ms"],
+           "decode_ms_per_step_median": run["decode_ms_per_step_median"],
+           "tokens_per_s": B * new / run["wall_s"],
+           "cache_bytes": run["cache_bytes"], "launches": counts}
+    log({"audio": row})
+    f32_token_parity(AUDIO, cfg, params, audio_run)
+    del params
+    return row
+
+
+def phase_vlm_audio(main_tps) -> dict:
+    """Phase 19's models, each loaded after the previous one is freed."""
+    t0 = time.perf_counter()
+    out = {"vlm": phase_vlm(main_tps), "audio": phase_audio()}
+    gc.collect()
+    log({"vlm_audio_s": time.perf_counter() - t0})
+    return out
+
 
 
 def card_line() -> str:
@@ -3005,6 +3294,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_zoo_kernels()
     zoo_kernels_s = time.perf_counter() - t0
+    phase_vlm_audio_kernels()
 
     cfg = dataclasses.replace(get_config("gpt2-large"), attn_impl="flash",
                               remat=False)
@@ -3032,6 +3322,7 @@ def main() -> int:
     phase_zoo_models(tps)
     log({"model_zoo_s": {"kernels": zoo_kernels_s,
                          "models": time.perf_counter() - t0}})
+    phase_vlm_audio(tps)
     k4_row = k4[("bfloat16", "gpt2-large")]
     k5_row = k5["full-width"]
     k6_row = k6["full-width"]

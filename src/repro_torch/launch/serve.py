@@ -14,6 +14,8 @@ pipeline, on PyTorch.
         --windowed --disaggregate
     PYTHONPATH=src python -m repro_torch.launch.serve --mode engine \
         --arch qwen3-moe-30b-a3b --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \
+        --windowed --attn-impl flash
 
 Port of ``repro.launch.serve``. ``--mode gtrac`` (the default): the
 window-batched router (``--windowed``, optionally ``--disaggregate``;
@@ -24,9 +26,13 @@ and every decode step through kernel K4), which also serves RWKV6
 (rwkv6-1.6b: every prefill's WKV scan through kernel K5, decode as plain
 recurrence) and Zamba2 (zamba2-2.7b: every Mamba2 prefill's SSD scan
 through kernel K6, its shared attention block through K3 and K4 at head
-dim 80). The pipeline server serves the decoder-only transformers, dense
-and MoE (learned positions or RoPE), whose layers the reference's stage
-functions run; it refuses the ssm, hybrid, vlm and audio families.
+dim 80). The pipeline server serves the decoder-only transformers, dense,
+MoE and vlm (learned positions, RoPE or, for qwen2-vl-7b, text-only
+M-RoPE), whose layers the reference's stage functions run; it refuses the
+ssm and hybrid families. Both modes refuse the audio family
+(whisper-large-v3): the reference's stage functions read
+``params["layers"]``, which Whisper does not have, and its engine
+prefills with tokens only, while Whisper's prefill needs frames.
 Parameters are made in the config's ``param_dtype`` (f32 for every
 shipped config; neither this CLI nor the reference's has a flag for it,
 so the largest configs, granite-34b, qwen3-moe and phi3.5-moe, fit one
@@ -219,11 +225,19 @@ def main(argv=None):
         ap.error("--relay rides on the gossip sync plane; add --gossip")
 
     cfg = get_config(args.arch)
-    if args.mode == "gtrac" and cfg.family not in ("dense", "moe"):
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: neither serving path runs an encoder-decoder: "
+            "the pipeline server's stage functions run params['layers'], "
+            "which Whisper does not have, and the engine prefills with "
+            "tokens only while Whisper's prefill needs frames (as in the "
+            "reference); serve it through models.api.build_model's "
+            "prefill(tokens=..., frames=...) and decode_step")
+    if args.mode == "gtrac" and cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: the trust-routed pipeline server serves the "
-            f"dense and moe families only (family {cfg.family!r}); serve "
-            "it with --mode engine")
+            f"dense, moe and vlm families only (family {cfg.family!r}); "
+            "serve it with --mode engine")
     if args.reduced:
         cfg = cfg.reduced(num_layers=4)
     cfg = dataclasses.replace(cfg, remat=False, attn_impl=args.attn_impl)

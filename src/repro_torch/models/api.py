@@ -1,21 +1,27 @@
 """Unified model API: ``build_model(cfg)`` and ``make_cache``.
 
-Port of ``repro.models.api`` for the serving surface of the families the
-port serves so far:
+Port of ``repro.models.api`` for the serving surface of every family:
 
     model.init(generator, device)            -> params
-    model.prefill(params, tokens=..., capacity=...) -> (logits, cache)
+    model.prefill(params, tokens=..., capacity=..., **inputs)
+                                             -> (logits, cache)
     model.decode_step(params, token, cache)  -> (logits, cache)
     model.make_cache(batch, capacity, device) -> empty cache
 
 The dense family (``dense``: GPT-2 Large, TinyLlama, SmolLM, StarCoder2,
-Granite) and the MoE family (``moe``: qwen3-moe, phi3.5-moe) are served by
-``models/transformer.py``, the ``ssm`` family (RWKV6) by
-``models/rwkv6.py``, the ``hybrid`` family (Zamba2: Mamba2 blocks and a
-shared attention block) by ``models/zamba2.py``. The other families raise
-``NotImplementedError`` naming the slice they wait for: ``vlm`` (M-RoPE)
-and ``audio`` (Whisper). The training hooks (``loss_fn``, the dry-run
-input specs) wait for the trainer slice.
+Granite), the MoE family (``moe``: qwen3-moe, phi3.5-moe) and the vlm
+family (``vlm``: Qwen2-VL, whose prefill also takes ``prefix_embeds``
+(B, Sv, d) stub patch embeddings and (3, B, S_total) M-RoPE
+``positions``) are served by ``models/transformer.py``; the ``audio``
+family (Whisper, whose prefill takes ``frames`` (B, S_enc, d) stub frame
+embeddings) by ``models/whisper.py``; the ``ssm`` family (RWKV6) by
+``models/rwkv6.py``; the ``hybrid`` family (Zamba2: Mamba2 blocks and a
+shared attention block) by ``models/zamba2.py``. As in the reference,
+``decode_step`` forwards no ``positions``: after an image prefix a vlm
+decode step takes its position from the cache's index (the module's
+``transformer.decode_step(..., positions=)`` takes continued M-RoPE
+positions). The training hooks (``loss_fn``, the dry-run input specs)
+wait for the trainer slice.
 """
 from __future__ import annotations
 
@@ -23,15 +29,17 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv6, transformer, zamba2
+from repro_torch.models import rwkv6, transformer, whisper, zamba2
 
-_FAMILY_MODULES = {"dense": transformer, "moe": transformer, "ssm": rwkv6,
+_FAMILY_MODULES = {"dense": transformer, "moe": transformer,
+                   "vlm": transformer, "audio": whisper, "ssm": rwkv6,
                    "hybrid": zamba2}
 
 
 def _module(cfg: ModelConfig):
-    """The module serving ``cfg``'s family; raises for the others (vlm and
-    audio name the slice they wait for: ``transformer.WAITING``)."""
+    """The module serving ``cfg``'s family; an unknown family (or a
+    position type the transformer does not serve) raises
+    ``NotImplementedError`` (``transformer.require_decoder``)."""
     mod = _FAMILY_MODULES.get(cfg.family, transformer)
     if mod is transformer:
         transformer.require_decoder(cfg)
@@ -49,13 +57,15 @@ class Model:
 
 def make_cache(cfg: ModelConfig, batch: int, capacity: int, device=None):
     """An empty serving cache for ``cfg`` on ``device`` (``cuda`` unless
-    the caller passes another). Dense and MoE: k, v of (L, batch,
-    capacity, Hkv, D) in the activation dtype and index 0. RWKV6: its zero
-    recurrent state (``rwkv6.make_state``, independent of ``capacity``)
-    and index 0, as the reference (``rwkv6.make_cache``). Zamba2: k, v of
-    (groups, batch, capacity, Hkv, D), the conv tails and the f32 SSM
-    states (``zamba2.make_cache``) and index 0. Each family's
-    ``make_cache`` resolves the device."""
+    the caller passes another). Dense, MoE and vlm: k, v of (L, batch,
+    capacity, Hkv, D) in the activation dtype and index 0. Whisper: sk,
+    sv, ck, cv, each (L, batch, capacity, H, D), and index 0, as the
+    reference's audio branch (a prefill's cache holds ck, cv at S_enc
+    rows instead). RWKV6: its zero recurrent state (``rwkv6.make_state``,
+    independent of ``capacity``) and index 0, as the reference
+    (``rwkv6.make_cache``). Zamba2: k, v of (groups, batch, capacity, Hkv,
+    D), the conv tails and the f32 SSM states (``zamba2.make_cache``) and
+    index 0. Each family's ``make_cache`` resolves the device."""
     return _module(cfg).make_cache(cfg, batch, capacity, device=device)
 
 

@@ -1,17 +1,23 @@
 """GQA attention: projections and the core implementations.
 
-Port of ``repro.models.attention`` for the dense decoder of this slice:
+Port of ``repro.models.attention``. ``attend`` dispatches as the reference
+does, on ``cfg.attn_impl`` and the sequence length:
 
-* ``direct`` — plain PyTorch (``attention_direct``): scores in f32, the
-  reference's -1e30 mask bias, softmax in f32, probabilities cast to the
-  activation dtype for the PV product. Used for ``attn_impl="xla"`` at
-  every length (the reference's chunked online-softmax variant is the same
-  function within rounding and joins the port later).
 * ``flash`` — kernel K3 through ``kernels.ops.flash_attention``: the
   hand-written CUDA kernel for tensors on the card, its plain version on
-  the CPU.
+  the CPU. Taken whenever ``attn_impl="flash"`` and no ``kv_len`` is
+  given: causal self-attention, non-causal attention (Whisper's encoder)
+  and Sq != Sk (Whisper's cross-attention, one query row at a decode
+  step).
+* ``chunked`` — plain PyTorch (``attention_chunked``): the reference's
+  online softmax over KV chunks, for ``Sk > cfg.attn_chunk_threshold``
+  without ``kv_len`` or ``q_offset`` (chunk ``max(attn_chunk_size,
+  Sk // 8)``; a ragged Sk falls back to ``direct``).
+* ``direct`` — plain PyTorch (``attention_direct``): scores in f32, the
+  reference's -1e30 mask bias, softmax in f32, probabilities cast to the
+  activation dtype for the PV product.
 
-The KV-cache decode step has the same two routes: ``decode_attend`` sends
+The KV-cache decode step has two routes: ``decode_attend`` sends
 ``flash`` to kernel K4 (``kernels.ops.decode_attention``) and ``xla`` to
 ``attention_direct`` with ``kv_len``, the reference's own decode math.
 
@@ -94,6 +100,51 @@ def _mask_bias(mask):
     return torch.where(mask, 0.0, -1e30).to(torch.float32)
 
 
+def attention_chunked(q, k, v, *, causal: bool, chunk: int = 1024,
+                      window: int = 0, unroll: bool = False,
+                      chunk_remat: bool = False):
+    """Online-softmax attention over KV chunks of ``chunk`` keys: the
+    reference's ``attention_chunked``, the same arithmetic in a Python
+    loop (f32 scores, the -1e30 mask bias, running max / sum / output in
+    f32, each chunk's PV product in q's dtype). Peak score memory is
+    (B, Hq, Sq, chunk). A ragged ``Sk % chunk != 0`` falls back to
+    ``attention_direct``, as in the reference. ``unroll`` and
+    ``chunk_remat`` pick how XLA traces the reference's scan (unrolled for
+    the dry-run's cost analysis, rematerialised in backward); an eager
+    loop has neither choice to make, so both are accepted and ignored."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if Sk % chunk != 0:
+        return attention_direct(q, k, v, causal=causal, window=window)
+    G = Hq // Hkv
+    dev = q.device
+    scale = torch.tensor(float(D), dtype=torch.float32).rsqrt().item()
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    q_pos = torch.arange(Sq, device=dev)[:, None]
+    m = torch.full((B, Hkv, G, Sq), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
+    o = torch.zeros((B, Hkv, G, Sq, D), dtype=torch.float32, device=dev)
+    for c0 in range(0, Sk, chunk):
+        kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc.float()) * scale
+        k_pos = c0 + torch.arange(chunk, device=dev)
+        mask = torch.ones((Sq, chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if window:
+            mask = mask & (k_pos > (q_pos - window))
+        scores = scores + _mask_bias(mask)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(q.dtype), vc).float()
+        m = m_new
+    out = o / torch.clamp_min(l[..., None], 1e-30)
+    return out.reshape(B, Hq, Sq, D).transpose(1, 2).to(q.dtype)
+
+
 def attention_flash(q, k, v, *, causal: bool):
     """Kernel K3 (``kernels/flash_attention.py``) through its dispatch."""
     return ops.flash_attention(q.contiguous(), k.contiguous(),
@@ -102,17 +153,25 @@ def attention_flash(q, k, v, *, causal: bool):
 
 def attend(cfg: ModelConfig, q, k, v, *, causal: bool = True,
            q_offset: int = 0, kv_len=None, window: int = 0):
-    """Dispatch on ``cfg.attn_impl``.
-
-    ``flash`` takes full causal self-attention only. The reference's flash
-    path silently ignores ``sliding_window``; here ``window > 0`` with
+    """Dispatch on ``cfg.attn_impl`` and the key length, as the reference:
+    flash (K3) when ``attn_impl="flash"`` and no ``kv_len``, causal or
+    not, Sq equal to Sk or not; otherwise ``attention_chunked`` when
+    ``Sk > cfg.attn_chunk_threshold`` with no ``kv_len`` and ``q_offset``
+    0; otherwise ``attention_direct``. The reference's flash path silently
+    ignores ``sliding_window``; here ``window > 0`` with
     ``attn_impl="flash"`` raises ``ValueError`` instead (no shipped config
     sets a window)."""
+    Sk = k.shape[1]
     if cfg.attn_impl == "flash" and kv_len is None:
         if window:
             raise ValueError("attn_impl='flash' does not implement "
                              f"sliding_window={window}; use attn_impl='xla'")
         return attention_flash(q, k, v, causal=causal)
+    if Sk > cfg.attn_chunk_threshold and kv_len is None and q_offset == 0:
+        chunk = max(cfg.attn_chunk_size, Sk // 8)
+        return attention_chunked(q, k, v, causal=causal, chunk=chunk,
+                                 window=window, unroll=not cfg.scan_layers,
+                                 chunk_remat=cfg.attn_chunk_remat)
     return attention_direct(q, k, v, causal=causal, q_offset=q_offset,
                             kv_len=kv_len, window=window)
 

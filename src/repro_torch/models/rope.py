@@ -1,10 +1,12 @@
-"""Rotary position embeddings (llama half-split RoPE).
+"""Rotary position embeddings: standard RoPE and Qwen2-VL M-RoPE.
 
-Port of ``repro.models.rope`` for standard RoPE: ``rope_freqs``,
-``rope_angles``, ``apply_rotary`` and ``positional_angles``, the same
+Port of ``repro.models.rope``: ``rope_freqs``, ``rope_angles``,
+``mrope_angles``, ``apply_rotary`` and ``positional_angles``, the same
 arithmetic (angles in f32, rotation in f32, cast back to the input's
-dtype). Qwen2-VL's M-RoPE (``mrope_angles``) joins the port with the vlm
-slice and raises until then.
+dtype). M-RoPE (multimodal rotary) splits the rotary pairs into (temporal,
+height, width) sections, each driven by its own position stream; for
+text-only tokens the three streams carry the same position, and M-RoPE
+gives plain RoPE's frequencies.
 """
 from __future__ import annotations
 
@@ -27,9 +29,16 @@ def rope_angles(positions, head_dim: int, theta: float):
 
 
 def mrope_angles(positions3, head_dim: int, theta: float, sections):
-    """Qwen2-VL multimodal RoPE: joins the port with the vlm slice."""
-    raise NotImplementedError("M-RoPE (qwen2-vl) joins the port with the "
-                              "vlm slice")
+    """positions3 (3, B, S) -> angles (B, S, head_dim/2) in float32.
+
+    ``sections`` = (t, h, w) counts of rotary *pairs* per stream; must
+    satisfy t + h + w == head_dim // 2."""
+    t, h, w = sections
+    assert t + h + w == head_dim // 2, (sections, head_dim)
+    inv = rope_freqs(head_dim, theta, device=positions3.device)
+    ang = positions3.float()[..., None] * inv          # (3, B, S, hd/2)
+    return torch.cat([ang[0, ..., :t], ang[1, ..., t:t + h],
+                      ang[2, ..., t + h:]], dim=-1)
 
 
 def apply_rotary(x, angles):
@@ -45,14 +54,17 @@ def apply_rotary(x, angles):
 
 
 def positional_angles(cfg: ModelConfig, positions):
-    """Dispatch on ``cfg.pos_type``. ``positions`` is (B, S), or (3, B, S)
-    whose temporal stream is used. Returns (B, S, head_dim/2) angles, or
-    None for non-rotary configs; M-RoPE raises until the vlm slice."""
+    """Dispatch on ``cfg.pos_type``. ``positions`` is (B, S) or (3, B, S):
+    RoPE uses the temporal stream of a (3, B, S); M-RoPE copies a (B, S)
+    to all three streams (text only). Returns (B, S, head_dim/2) angles,
+    or None for non-rotary configs."""
     if cfg.pos_type == "rope":
         if positions.dim() == 3:
             positions = positions[0]
         return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     if cfg.pos_type == "mrope":
+        if positions.dim() == 2:
+            positions = positions[None].expand((3,) + positions.shape)
         return mrope_angles(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.mrope_sections)
     return None

@@ -1,5 +1,7 @@
 """Decoder-only transformer LM: the dense family (GPT-2 Large, TinyLlama,
-SmolLM, StarCoder2, Granite) and the MoE family (qwen3-moe, phi3.5-moe).
+SmolLM, StarCoder2, Granite), the MoE family (qwen3-moe, phi3.5-moe) and
+the vlm family (Qwen2-VL: M-RoPE, and stub patch embeddings prepended to
+the token embeddings, ``prefix_embeds``).
 
 Port of ``repro.models.transformer`` for the serving paths: ``block_forward``
 and ``forward_hidden`` (the pipeline server's stage compute), and the
@@ -40,29 +42,21 @@ from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.rope import apply_rotary, positional_angles
 
 
-#: position types the decoder serves (vlm's M-RoPE waits for its slice)
-_POS_TYPES = ("learned", "none", "rope")
-#: family -> the slice of the port that brings it
-WAITING = {
-    "vlm": "the vlm slice (M-RoPE, qwen2-vl)",
-    "audio": "the Whisper slice (models/whisper.py)",
-}
+#: families and position types the decoder serves
+_FAMILIES = ("dense", "moe", "vlm")
+_POS_TYPES = ("learned", "none", "rope", "mrope")
 
 
 def require_decoder(cfg: ModelConfig) -> None:
-    """Raise for configs this module does not serve. It serves the dense
-    and MoE families with learned positions, none, or RoPE; vlm (M-RoPE)
-    and audio raise, naming the slice each waits for (RWKV6 and Zamba2
-    have modules of their own)."""
-    if cfg.family in WAITING:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} joins "
-                                  f"the port with {WAITING[cfg.family]}")
-    if cfg.family not in ("dense", "moe") or cfg.pos_type not in _POS_TYPES:
+    """Raise for configs this module does not serve. It serves the dense,
+    MoE and vlm families with learned positions, none, RoPE or M-RoPE;
+    RWKV6, Zamba2 and Whisper have modules of their own."""
+    if cfg.family not in _FAMILIES or cfg.pos_type not in _POS_TYPES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / pos_type "
             f"{cfg.pos_type!r} is not served by the decoder-only "
-            "transformer (dense and moe with learned, none or rope "
-            "positions)")
+            "transformer (dense, moe and vlm with learned, none, rope or "
+            "mrope positions)")
 
 
 # ---------------------------------------------------------------------------
@@ -115,23 +109,26 @@ def _depth(tree: Any) -> int:
 
 
 #: the subtrees the reference stacks along a leading layer axis: the
-#: dense / RWKV6 ``layers`` and Zamba2's ``mamba`` blocks
-_STACKED = ("layers", "mamba")
+#: dense / RWKV6 ``layers``, Zamba2's ``mamba`` blocks and Whisper's
+#: ``encoder`` and ``decoder`` blocks
+_STACKED = ("layers", "mamba", "encoder", "decoder")
 
 
 def params_from_jax(tree: Dict[str, Any], device=None) -> Params:
     """The reference's parameter pytree (leaves as numpy arrays) -> this
     package's parameter dict on ``device`` (``cuda`` unless the caller
     passes another; ``resolve_device``). Serves every family the port
-    serves: the dense and MoE transformer and RWKV6 (``embed`` /
+    serves: the dense, MoE and vlm transformer and RWKV6 (``embed`` /
     ``layers`` / ``final_norm``; an MoE layer's ``ffn`` holds the router
-    and the (E, d, f) / (E, f, d) expert stacks) and Zamba2 (``embed`` /
-    ``mamba`` / ``shared`` / ``final_norm``).
+    and the (E, d, f) / (E, f, d) expert stacks), Zamba2 (``embed`` /
+    ``mamba`` / ``shared`` / ``final_norm``) and Whisper (``embed`` /
+    ``enc_pos`` / ``encoder`` / ``decoder`` / ``enc_norm`` /
+    ``final_norm``).
 
-    ``layers`` and ``mamba`` are stacked along a leading layer axis in the
-    reference; each becomes a list with one dict per layer. Every other
-    subtree (Zamba2's single ``shared`` block among them) and every leaf
-    keep their shape, layout and dtype."""
+    ``layers``, ``mamba``, ``encoder`` and ``decoder`` are stacked along a
+    leading layer axis in the reference; each becomes a list with one
+    dict per layer. Every other subtree (Zamba2's single ``shared`` block
+    among them) and every leaf keep their shape, layout and dtype."""
     device = resolve_device(device)
     out = {}
     for name, sub in tree.items():
@@ -197,18 +194,27 @@ def _angles(cfg: ModelConfig, positions):
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
-                   collect_kv: bool = False):
-    """tokens (B,S) -> final-normed hidden (B,S,d) through every layer.
+                   prefix_embeds=None, collect_kv: bool = False):
+    """tokens (B,S) -> final-normed hidden (B,S_total,d) through every
+    layer.
 
-    ``positions`` (B, S) feed learned positions and RoPE (default
-    0..S-1). With ``collect_kv`` returns (hidden, (k, v)) with k, v stacked
-    per layer: (L, B, S, Hkv, D). The MoE load-balance loss, which the
-    reference returns too, is a training quantity and is dropped here."""
+    ``prefix_embeds`` (B, Sv, d): modality-stub embeddings (Qwen2-VL's
+    patch embeddings) prepended to the token embeddings, so S_total =
+    Sv + S. ``positions`` (B, S_total) feed learned positions, RoPE and
+    text-only M-RoPE, (3, B, S_total) the three M-RoPE streams (default
+    0..S_total-1). With ``collect_kv`` returns (hidden, (k, v)) with k, v
+    stacked per layer: (L, B, S_total, Hkv, D). The MoE load-balance loss,
+    which the reference returns too, is a training quantity and is
+    dropped here."""
     require_decoder(cfg)
+    learned = cfg.pos_type == "learned" and positions is not None and \
+        positions.dim() == 2
     x = embed_tokens(cfg, params["embed"], tokens,
-                     positions if cfg.pos_type == "learned" else None)
-    B, S = tokens.shape
-    if positions is None and cfg.pos_type == "rope":
+                     positions if learned else None)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
+    if positions is None and cfg.pos_type in ("rope", "mrope"):
         positions = torch.arange(S, device=tokens.device)[None, :].expand(
             B, S)
     angles = _angles(cfg, positions)
@@ -244,11 +250,13 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens, positions=None,
-            capacity: Optional[int] = None):
-    """Process the prompt (B, S); returns (last-token logits (B,1,V),
-    cache) with K/V zero-padded to ``capacity`` (default S)."""
+            prefix_embeds=None, capacity: Optional[int] = None):
+    """Process the prompt (B, S) behind an optional ``prefix_embeds``
+    (B, Sv, d); returns (last-token logits (B,1,V), cache) with K/V of
+    all S_total = Sv + S positions, zero-padded to ``capacity`` (default
+    S_total), and index S_total."""
     x, (k, v) = forward_hidden(cfg, params, tokens, positions=positions,
-                               collect_kv=True)
+                               prefix_embeds=prefix_embeds, collect_kv=True)
     L, B, S = k.shape[:3]
     capacity = max(capacity or S, S)
     cache = make_cache(cfg, B, capacity, dtype=k.dtype, device=k.device)
@@ -264,7 +272,9 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache,
     """token (B,1) int; cache from prefill/make_cache. One serve step:
     returns (logits (B,1,V), cache) with the new K/V written in place and
     the index advanced. The index is a host int, so no step reads a device
-    scalar back."""
+    scalar back. Rotary configs take the token's position from ``index``
+    unless ``positions`` ((B, 1), or (3, B, 1) for M-RoPE: Qwen2-VL's
+    continued positions after an image prefix) are given."""
     require_decoder(cfg)
     index = int(cache["index"])
     B = token.shape[0]
@@ -272,7 +282,7 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache,
     x = embed_tokens(cfg, params["embed"], token,
                      positions=torch.full((B, 1), index, device=dev)
                      if cfg.pos_type == "learned" else None)
-    if cfg.pos_type == "rope" and positions is None:
+    if cfg.pos_type in ("rope", "mrope") and positions is None:
         positions = torch.full((B, 1), index, dtype=torch.int32, device=dev)
     angles = _angles(cfg, positions)
     kv_len = torch.full((B,), index + 1, dtype=torch.int32, device=dev)

@@ -86,10 +86,11 @@ def make_stage_fns(cfg: ModelConfig, params, partition: StagePartition):
     A payload is ``(tokens (B, S) int64, x)`` with ``x`` None at stage 0;
     the last stage returns ``(tokens, logits (B, 1, V))`` of the last
     position. Every payload holds its stream's whole prefix, so positions
-    run 0..S-1 in every hop: a RoPE stage builds its angles from them, as
-    the reference does in each stage. Serves the dense and MoE decoders
-    (an MoE layer's load-balance loss is dropped, as the reference's stage
-    drops it). Runs under ``torch.inference_mode``."""
+    run 0..S-1 in every hop: a RoPE stage builds its angles from them, and
+    an M-RoPE (vlm) stage its text-only angles (the three streams equal),
+    as the reference does in each stage. Serves the dense, MoE and vlm
+    decoders (an MoE layer's load-balance loss is dropped, as the
+    reference's stage drops it). Runs under ``torch.inference_mode``."""
     require_decoder(cfg)
     n = partition.n_stages
 

@@ -46,9 +46,11 @@ def cache_bytes(cfg: ModelConfig, batch: int, capacity: int) -> int:
     summed over the tensors of that cache built on the ``meta`` device
     (shapes and dtypes only, nothing allocated), as the reference sums
     its ``jax.eval_shape``. The layout is the model module's own: dense
-    K/V grow with ``capacity``, the RWKV6 state does not, and Zamba2's
-    cache is K/V per shared-block application (growing) plus conv tails
-    and SSM states per Mamba2 block (fixed)."""
+    K/V grow with ``capacity``, the RWKV6 state does not, Zamba2's cache
+    is K/V per shared-block application (growing) plus conv tails and SSM
+    states per Mamba2 block (fixed), and Whisper's the reference API's
+    four (L, batch, capacity, H, D) tensors (a prefill's cache holds its
+    cross K/V at S_enc rows instead)."""
     cache = make_cache(cfg, batch, capacity, device="meta")
     return sum(t.numel() * t.element_size() for t in cache.values()
                if isinstance(t, torch.Tensor)) + _INDEX_BYTES

@@ -242,3 +242,152 @@ def test_kernel_matches_plain_on_h100():
                 want = tfa.flash_attention_plain(q, k, v, causal=causal)
                 assert float((got.float() - want.float()).abs().max()) \
                     <= TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# K3 in Whisper's modes: non-causal, Sq != Sk
+# ---------------------------------------------------------------------------
+
+
+def _qkv(B, Sq, Sk, Hq, Hkv, D, dtype, seed=0):
+    """q (B, Sq, Hq, D) and k, v (B, Sk, Hkv, D), numpy-seeded, the same
+    bits for both packages."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, s, h, D)).astype(np.float32)
+            for s, h in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv))]
+    if dtype == "bfloat16":
+        arrs = [a.astype(ml_dtypes.bfloat16) for a in arrs]
+    jx = [jnp.asarray(a) for a in arrs]
+    tx = [torch.from_numpy(a.astype(np.float32)).to(getattr(torch, dtype))
+          for a in arrs]
+    return jx, tx
+
+
+#: (B, Sq, Sk, Hq, Hkv, D): a decode step's one-token cross-attention, a
+#: short prompt's cross-attention, a longer query block, GQA
+CROSS_SHAPES = [(2, 1, 64, 4, 4, 64), (2, 4, 128, 4, 4, 64),
+                (1, 32, 96, 4, 2, 32), (1, 9, 64, 6, 3, 16)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_sq_ne_sk_matches_pallas(B, Sq, Sk, Hq, Hkv, D, dtype,
+                                             causal):
+    """K3's plain version with Sq != Sk against the Pallas kernel in
+    interpret mode and the oracle. Non-causal is Whisper's
+    cross-attention; causal with Sq != Sk holds the two masks to the same
+    rule (key j visible to query i iff j <= i, both counted from 0: the
+    plain version's ``tril`` on (Sq, Sk), the kernel's absolute
+    positions)."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(B, Sq, Sk, Hq, Hkv, D, dtype, seed=6)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    pallas = jflash(jq, jk, jv, causal=causal, blk_q=32, blk_k=32,
+                    interpret=True)
+    oracle = jref.attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("Sk", [100, 1500])
+@pytest.mark.parametrize("Sq", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_ragged_cross_matches_direct(Sk, Sq, dtype):
+    """Ragged encoder lengths (Whisper's 1500 frames is no multiple of
+    the TPU kernel's blocks): K3's plain version, non-causal, against the
+    reference's ``attention_direct``."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(2, Sq, Sk, 4, 4, 64, dtype, seed=7)
+    got = tfa.flash_attention_plain(tq, tk, tv, causal=False)
+    want = jattn.attention_direct(jq, jk, jv, causal=False)
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
+
+
+#: (Sq, Sk, causal): at the chunk threshold (1024: direct), one past it
+#: (1025: chunked's ragged fallback), two chunks (2048), a ragged 1500
+#: (Whisper's frames), and short queries over long keys
+CHUNK_CASES = [(1024, 1024, True), (1025, 1025, True), (2048, 2048, True),
+               (1500, 1500, False), (4, 2048, False), (1, 1500, False)]
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", CHUNK_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_chunked_matches_reference(Sq, Sk, causal, dtype):
+    """``attention_chunked`` at the reference's dispatch chunk
+    (``max(attn_chunk_size, Sk // 8)`` = 1024 here) and at 256 (8 chunks
+    at 2048), and its ragged fallback, within the stated tolerance."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(1, Sq, Sk, 2, 1, 16, dtype, seed=8)
+    for chunk in (1024, 256):
+        got = tattn.attention_chunked(tq, tk, tv, causal=causal,
+                                      chunk=chunk)
+        want = jattn.attention_chunked(jq, jk, jv, causal=causal,
+                                       chunk=chunk)
+        assert got.dtype == tq.dtype
+        np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype],
+                                   err_msg=f"chunk {chunk}")
+
+
+def _record(monkeypatch, mod, seen):
+    """Record which of ``mod``'s three attention functions ``attend``
+    calls (each still computes)."""
+    for name in ("attention_direct", "attention_chunked",
+                 "attention_flash"):
+        orig = getattr(mod, name)
+
+        def wrapped(*a, _orig=orig, _name=name, **kw):
+            seen.append(_name)
+            return _orig(*a, **kw)
+        monkeypatch.setattr(mod, name, wrapped)
+
+
+#: (Sq, Sk, kv_len, q_offset): every branch of the reference's dispatch
+BRANCH_CASES = [(4, 1024, None, 0), (4, 1025, None, 0), (4, 2048, None, 0),
+                (4, 1500, None, 0), (4, 2048, 2000, 0), (4, 2048, None, 3),
+                (1, 1500, None, 0), (4, 64, None, 0)]
+
+
+@pytest.mark.parametrize("Sq,Sk,kv_len,q_offset", BRANCH_CASES)
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attend_takes_the_reference_branch(monkeypatch, Sq, Sk, kv_len,
+                                           q_offset, impl, dtype):
+    """``attend`` picks the reference's branch for every (Sk, kv_len,
+    q_offset) (flash without kv_len; chunked above the threshold without
+    kv_len or offset; else direct), and the result agrees. The
+    reference's first call of a chunked dispatch may fall through to
+    ``attention_direct`` (ragged Sk), as the port's does."""
+    over = dict(num_layers=2, attn_impl=impl, activation_dtype=dtype)
+    cfg = get_config("qwen2-vl-7b").reduced(**over)
+    tcfg = tget_config("qwen2-vl-7b").reduced(**over)
+    (jq, jk, jv), (tq, tk, tv) = _qkv(1, Sq, Sk, 4, 2, 32, dtype, seed=9)
+    jseen, tseen = [], []
+    _record(monkeypatch, jattn, jseen)
+    _record(monkeypatch, tattn, tseen)
+    kw = dict(causal=False, q_offset=q_offset)
+    want = jattn.attend(cfg, jq, jk, jv, kv_len=None if kv_len is None
+                        else np.array([kv_len]), **kw)
+    got = tattn.attend(tcfg, tq, tk, tv, kv_len=None if kv_len is None
+                       else torch.tensor([kv_len]), **kw)
+    assert tseen == jseen and tseen
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
+
+
+@pytest.mark.h100
+def test_kernel_sq_ne_sk_matches_plain_on_h100():
+    """The CUDA kernel, non-causal and with Sq != Sk (one query row of a
+    64-row tile; a key tail past a multiple of 64), against its plain
+    version (H100 only)."""
+    if not torch.cuda.is_available() or \
+            torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("needs an sm_90 GPU (H100): the CUDA kernel has no "
+                    "CPU mode")
+    for B, Sq, Sk, Hq, Hkv, D in CROSS_SHAPES + [(4, 1, 1500, 20, 20, 64),
+                                                 (4, 4, 1500, 20, 20, 64),
+                                                 (2, 1500, 1500, 20, 20, 64)]:
+        for dtype in ("float32", "bfloat16"):
+            _, tx = _qkv(B, Sq, Sk, Hq, Hkv, D, dtype)
+            q, k, v = (t.cuda() for t in tx)
+            got = tfa.flash_attention_cuda(q, k, v, causal=False)
+            want = tfa.flash_attention_plain(q, k, v, causal=False)
+            assert float((got.float() - want.float()).abs().max()) \
+                <= TOL[dtype]

@@ -1,5 +1,5 @@
-"""The CPU rehearsals of ``chip_smoke.py`` phases 17 (``edge_control``)
-and 18 (``model_zoo``, below).
+"""The CPU rehearsals of ``chip_smoke.py`` phases 17 (``edge_control``),
+18 (``model_zoo``) and 19 (``vlm_audio``, below).
 
 The phase's hedge and worker-drill counts come from the simulation, which
 draws nothing that depends on the model's width, so the phase runs here
@@ -151,3 +151,98 @@ def test_phase18_rehearsal(monkeypatch, capsys):
     assert all(r["equal"] for r in parity.values()) and \
         set(parity) == set(layers)
     assert parity["qwen3-moe-30b-a3b"]["router_topk_sets_differing"] == 0
+
+
+def _count_dispatches(monkeypatch):
+    """Count K3's and K4's dispatches (``ops.flash_attention`` and
+    ``ops.decode_attention``, whose plain versions run on CPU tensors) and
+    serve them as the launch counters, so that a phase's launch gates run
+    as they stand on the card."""
+    from repro_torch.kernels import ops
+    calls = dict.fromkeys(ops.CUDA_KERNELS, 0)
+    for name in ("flash_attention", "decode_attention"):
+        orig = getattr(ops, name)
+
+        def counted(*a, _orig=orig, _name=name, **kw):
+            calls[_name] += 1
+            return _orig(*a, **kw)
+        monkeypatch.setattr(ops, name, counted)
+    monkeypatch.setattr(ops, "launch_counts", lambda: dict(calls))
+    monkeypatch.setattr(ops, "reset_launch_counts",
+                        lambda: calls.update(dict.fromkeys(calls, 0)))
+
+
+def test_phase19_rehearsal(monkeypatch, capsys):
+    """Phase 19 (``vlm_audio``) at a tiny width and each model's full
+    depth (Qwen2-VL 28 layers; Whisper 32 + 32), on the kernels' plain
+    versions, with K3's and K4's dispatches counted as their launches:
+    qwen2-vl through ``run_queue`` on the 28-layer topology (14 stages x 6
+    replicas) serves 16 tokens per stream in ``VLM_WINDOWS`` windows, each
+    running the DP once (K1), with ``VLM_FORWARDS`` stage forwards (K3 =
+    forwards x 2 layers, K4 = 0); the f32 run_queue parity at 8 layers
+    holds; the engine launches K3 = 2 x 28 and K4 = 62 x 28; the image
+    path K3 = 28 and K4 = 28 per decode step, its f32 parity holds;
+    Whisper launches K3 = 32 + 2 x 32 at prefill and 32 per decode step,
+    K4 = 32 per decode step, its cache bytes and f32 parity hold. The
+    prompts, the image and the frames are shortened (no count depends on
+    their length). The CPU runs no K1 kernel (the router's ``auto``
+    backend is the host DP here), so run_queue's K1 gate is replaced by
+    the DP windows the router counts."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    _count_dispatches(monkeypatch)
+    orig = cs.zoo_config
+    seen = {}
+
+    def tiny(arch, dtype, layers=None):
+        cfg = orig(arch, dtype, layers)
+        over = dict(TINY)
+        if cfg.pos_type == "mrope":
+            over["mrope_sections"] = (2, 3, 3)
+        if cfg.family == "audio":
+            over["num_kv_heads"] = 2
+        return dataclasses.replace(cfg, **over)
+
+    def check_served(cfg, srv, done, counts, forwards):
+        per_stage = cfg.num_layers // srv.partition.n_stages
+        assert counts["flash_attention"] == forwards * per_stage
+        seen["main"] = dict(
+            windows=srv.router.stats.windows,
+            k1=srv.router.stats.device_calls, forwards=forwards,
+            k3=counts["flash_attention"], k4=counts["decode_attention"],
+            tokens=[r.metrics.tokens for r in done])
+
+    monkeypatch.setattr(cs, "zoo_config", tiny)
+    monkeypatch.setattr(cs, "check_served", check_served)
+    monkeypatch.setattr(cs, "ZOO_ENGINE_GROUPS", ((8, 4), (24, 4)))
+    monkeypatch.setattr(cs, "VLM_IMAGE", (4, (2, 4), 24))
+    monkeypatch.setattr(cs, "AUDIO_RUN", (4, 64, 4, 32))
+    out = cs.phase_vlm_audio(0.0)
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        if line.startswith("{"):
+            obj = json.loads(line)
+            key = next(iter(obj))
+            rows.setdefault(key, []).append(obj[key])
+    assert seen["main"] == dict(
+        windows=cs.VLM_WINDOWS, k1=cs.VLM_WINDOWS, forwards=cs.VLM_FORWARDS,
+        k3=2 * cs.VLM_FORWARDS, k4=0, tokens=[cs.NEW_TOKENS] * 4)
+    assert (cs.VLM_WINDOWS, cs.VLM_FORWARDS) == (34, 938)
+    main = rows["vlm_main_path"][0]
+    assert main["peers"] == 84 and main["layers"] == 28
+    assert rows["vlm_f32_parity"][0]["equal"]
+    eng = out["vlm"]
+    assert eng["launches"]["flash_attention"] == 2 * 28
+    assert eng["launches"]["decode_attention"] == 62 * 28
+    image = rows["vlm_image"][0]
+    assert image["launches"]["flash_attention"] == 28
+    assert image["launches"]["decode_attention"] == 28 * cs.VLM_DECODE
+    assert image["tokens"] == 4 * (cs.VLM_DECODE + 1)
+    audio = rows["audio"][0]
+    assert audio["launches"]["flash_attention"] == 96 + 32 * 31
+    assert audio["launches"]["decode_attention"] == 32 * 31
+    assert audio["layers"] == [32, 32]
+    parity = {r["model"]: r for r in rows["vlm_audio_f32_parity"]}
+    assert set(parity) == {"qwen2-vl-7b image path", "whisper-large-v3"}
+    assert all(r["equal"] for r in parity.values())
+    assert parity["qwen2-vl-7b image path"]["layers"] == 8

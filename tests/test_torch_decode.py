@@ -343,9 +343,13 @@ def test_positional_angles_dispatch():
     assert torch.equal(trope.positional_angles(tcfg, pos[None].expand(3, 1, 6)),
                        a)                       # temporal stream of (3,B,S)
     assert trope.positional_angles(tget_config("gpt2-large"), pos) is None
-    mcfg = dataclasses.replace(tcfg, pos_type="mrope")
-    with pytest.raises(NotImplementedError, match="vlm"):
-        trope.positional_angles(mcfg, pos)
+    # M-RoPE: text-only positions, a (B, S) copied to the three
+    # streams, give plain RoPE's angles; distinct streams do not
+    mcfg = dataclasses.replace(tcfg, pos_type="mrope",
+                               mrope_sections=(8, 4, 4))
+    assert torch.equal(trope.positional_angles(mcfg, pos), a)
+    streams = torch.stack([pos, pos + 1, pos + 2])
+    assert not torch.equal(trope.positional_angles(mcfg, streams), a)
 
 
 # ---------------------------------------------------------------------------

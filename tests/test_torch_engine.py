@@ -29,6 +29,8 @@ from repro.serving.kv_cache import cache_bytes as jcache_bytes
 from repro_torch.configs import get_config as tget_config
 from repro_torch.launch import serve as tserve
 from repro_torch.models import api as tapi
+from repro_torch.models import transformer as ttransformer
+from repro_torch.models import whisper as twhisper
 from repro_torch.models.transformer import init_params, params_from_jax
 from repro_torch.serving.api import SubmitSpec
 from repro_torch.serving.engine import ServingEngine, next_tokens
@@ -227,9 +229,14 @@ def test_build_model_serves_dense_and_names_the_rest():
     assert "pos" not in params["embed"]
     assert model.make_cache(2, 5, device="cpu")["k"].shape == \
         (2, 2, 5, 2, 32)
-    for fam, slice_name in (("vlm", "vlm"), ("audio", "Whisper")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            tapi.build_model(dataclasses.replace(tcfg, family=fam))
+    # every family of the reference is served (vlm by the transformer,
+    # audio by models/whisper.py); a family it does not have raises
+    assert tapi._module(dataclasses.replace(tcfg, family="vlm")) is \
+        ttransformer
+    assert tapi._module(dataclasses.replace(tcfg, family="audio")) is \
+        twhisper
+    with pytest.raises(NotImplementedError, match="family 'speech'"):
+        tapi.build_model(dataclasses.replace(tcfg, family="speech"))
     # the moe family is served since the MoE slice: its layers carry the
     # router and the expert stacks, its cache is the dense layout
     moe_cfg = tget_config("qwen3-moe-30b-a3b").reduced(vocab_size=64)
