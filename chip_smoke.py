@@ -4,10 +4,11 @@
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
 Phases, each of which fails the run (non-zero exit) when it fails (they
-run in the order 1, 15, 14, 10, 2, 18's kernel checks, 11-13, 3, 4, 16, 17,
-5-9, the rest of 18: the engine paths first, so that a fault there shows
-before the long routing phases, and the kernel checks early, where
-``torch.profiler`` still records their device time):
+run in the order 1, 15, 14, 10, 2, 18's and 19's kernel checks, 11-13, 3,
+4, 16, 17, 5-9, the rest of 18, the rest of 19, 20: the engine paths
+first, so that a fault there shows before the long routing phases, and
+the kernel checks early, where ``torch.profiler`` still records their
+device time):
 
 1. build  — compiles the hand-written kernels from ``src/repro_torch/csrc``
    with nvcc for sm_90a, in parallel (one nvcc per source).
@@ -199,6 +200,30 @@ before the long routing phases, and the kernel checks early, where
    K3 and K4 as a dense model does) and phase 12's f32 kernel-vs-plain
    token parity (prompts of 16 and 320), with the MoE router's differing
    top-k sets counted.
+19. vlm and audio — K3 in Whisper's non-causal and Sq != Sk modes and at
+   Qwen2-VL's heads, K4 at their caches, against their plain versions;
+   qwen2-vl-7b at full width through ``run_queue`` (the rehearsed 34
+   windows and 938 forwards), the engine, and its image path (512 stub
+   patches + 1536 text tokens, decode at continued M-RoPE positions);
+   whisper-large-v3 through its model API (1500 stub frames); each with
+   its exact launches and f32 kernel-vs-plain token parity.
+20. train — smollm-360m at full width (f32 parameters, bf16 activations,
+   ``attn_impl="xla"``) trained 20 steps by ``make_train_step`` on the
+   seeded synthetic stream (8 x 1024 tokens in 2 microbatches). Fails
+   unless every loss is finite, the last below the first, and no kernel
+   launched (none has a gradient); one more step runs under
+   ``torch.profiler`` (the device's busy share, the top ops). The state
+   (~4.3 GB) is checkpointed
+   with an async write and restored bit-equal into a fresh template; the
+   restored parameters serve the main path's workload through
+   ``run_queue`` with the kernels (the rehearsed 34 windows = K1, 1072
+   forwards, K3 = 2144, K4 = 0, 16 tokens per stream). At 4 layers, 4
+   steps straight equal 2 steps, a checkpoint, a restore and 2 more
+   within 1e-5 (the differing gradient leaves named when not bit-equal).
+   Every family's reduced config takes 3 f32 steps on the card and on the
+   CPU from the same parameters and batches, within the rules of
+   ``tests/test_torch_trainer.py``. On the card each of K3-K6's
+   dispatchers raises on an input that requires grad.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and the result line
@@ -3256,6 +3281,485 @@ def phase_vlm_audio(main_tps) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: training (trainer, AdamW, checkpoints, the data stream)
+# ---------------------------------------------------------------------------
+
+
+TRAIN_ARCH = "smollm-360m"
+#: the data stream (sequence length, global batch) and the step count
+TRAIN_SEQ = 1024
+TRAIN_BATCH = 8
+TRAIN_STEPS = 20
+TRAIN_TCFG = dict(learning_rate=3e-4, warmup_steps=2, total_steps=20,
+                  microbatches=2)
+#: where the checkpoints are written (the build directory is ignored by
+#: git) and removed again
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+#: layers of the resume check (smollm's width)
+TRAIN_RESUME_LAYERS = 4
+#: each family's reduced config for the card-vs-CPU f32 steps, and their
+#: batch (B, S; Whisper's frames S, Qwen2-VL's patches PATCHES)
+TRAIN_FAMILIES = ("gpt2-large", "smollm-360m", "qwen3-moe-30b-a3b",
+                  "qwen2-vl-7b", "whisper-large-v3", "rwkv6-1.6b",
+                  "zamba2-2.7b")
+TRAIN_PARITY_BATCH = (4, 64)
+TRAIN_PARITY_PATCHES = 8
+TRAIN_PARITY_STEPS = 3
+#: the f32 comparison's tolerances (``tests/test_torch_trainer.py``, where
+#: the port is held against the reference with the same rules): lr, the
+#: parameters' tolerance (2% of one step), the rounding floor of Adam's
+#: normalised step (elements whose √v̂ falls below FLOOR x the leaf's RMS
+#: √v̂ move anything in [-lr, lr] and are held to 2 lr per step), the
+#: moments' tolerance (x the leaf's largest value), the metrics' (relative;
+#: the looser one after a free run's first step, whose floor elements have
+#: moved the parameters apart by up to 2 lr)
+TRAIN_PARITY_LR = 1e-3
+TRAIN_PARAM_TOL = 2e-5
+TRAIN_FLOOR = 1e-2
+TRAIN_MOM_TOL = 1e-4
+TRAIN_METRIC_RTOL = (1e-5, 1e-4)
+#: run_queue's windows and stage forwards for the main workload on the
+#: 32-layer topology (16 stages x 6 replicas), from the CPU rehearsal of
+#: this phase
+TRAIN_WINDOWS = 34
+TRAIN_FORWARDS = 1072
+
+
+def train_config(layers=None):
+    """smollm-360m at full width as the reference launcher trains it: f32
+    parameters, bf16 activations, ``attn_impl="xla"`` (no kernel has a
+    gradient), ``remat=False``; its depth cut to ``layers`` when given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    return dataclasses.replace(cfg, attn_impl="xla", remat=False,
+                               num_layers=layers or cfg.num_layers)
+
+
+def train_batches(vocab: int, start: int, n: int):
+    """Batches ``start`` .. ``start + n - 1`` of the seeded synthetic
+    stream (TRAIN_SEQ x TRAIN_BATCH), as tensors on the device."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    data = SyntheticLMStream(DataConfig(vocab_size=vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=SEED))
+    for b in data.batches(start, n):
+        yield {k: torch.as_tensor(v, device=DEVICE) for k, v in b.items()}
+
+
+def train_run(cfg, params, opt_state, start: int, n: int, tcfg=None):
+    """``n`` steps of ``make_train_step`` from batch ``start``: (params,
+    opt_state, per-step rows of ms, loss, lr and grad_norm)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.trainer.train_loop import make_train_step
+    step = make_train_step(build_model(cfg),
+                           TrainConfig(**(tcfg or TRAIN_TCFG)))
+    rows = []
+    for batch in train_batches(cfg.vocab_size, start, n):
+        sync()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        sync()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     **{k: float(v) for k, v in m.items()}})
+    return params, opt_state, rows
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.trainer.optimizer import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def trees_equal(a, b) -> bool:
+    """Every leaf of the same dtype, shape and bits."""
+    import torch
+    from repro_torch.trainer.optimizer import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def phase_train_main():
+    """smollm-360m at full width, TRAIN_STEPS steps on the seeded stream.
+    Fails unless every loss is finite, the last below the first, and no
+    kernel launched. Returns (cfg, params, opt_state)."""
+    import math
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.trainer import optimizer as opt
+    cfg = train_config()
+    params, init_s = zoo_params(cfg)
+    opt_state = opt.init(params)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    params, opt_state, rows = train_run(cfg, params, opt_state, 0,
+                                        TRAIN_STEPS)
+    counts = ops.launch_counts()
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{TRAIN_ARCH} training losses {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"training launched kernels: {counts}")
+    ms = sorted(r["ms"] for r in rows)
+    median = ms[len(ms) // 2]
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    log({"train_main": {
+        "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "parameters": n_parameters(params),
+        "param_dtype": cfg.param_dtype,
+        "activation_dtype": cfg.activation_dtype, "attn_impl": cfg.attn_impl,
+        "init_s": init_s, "steps": TRAIN_STEPS,
+        "tokens_per_step": tokens, **TRAIN_TCFG,
+        "step_ms_first": rows[0]["ms"], "step_ms_median": median,
+        "tokens_per_s": tokens / (median / 1e3),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "losses": losses, "grad_norms": [r["grad_norm"] for r in rows],
+        "lrs": [r["lr"] for r in rows],
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                              if DEVICE == "cuda" else None),
+        "state_bytes": tree_bytes(params) + tree_bytes(opt_state),
+        "launches": counts}})
+    return cfg, params, opt_state
+
+
+def train_profile(cfg, params, opt_state) -> dict:
+    """Where a training step's time goes: one more step (batch
+    TRAIN_STEPS, its result discarded) under ``torch.profiler``: the
+    device's busy share, the casts and matmuls, the top ops and kernels."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.trainer.train_loop import make_train_step
+    step = make_train_step(build_model(cfg), TrainConfig(**TRAIN_TCFG))
+    batch = next(train_batches(cfg.vocab_size, TRAIN_STEPS, 1))
+    row = profile_summary(*profile_window(
+        lambda: step(params, opt_state, batch)), [])
+    log({"train_profile": row})
+    return row
+
+
+def phase_train_checkpoint(cfg, params, opt_state):
+    """The trained state saved at step TRAIN_STEPS with an async write
+    (the loop's stall and the write timed apart), restored into a fresh
+    template; fails unless the restored tree is bit-equal. Returns the
+    restored parameters."""
+    import shutil
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.trainer import optimizer as opt
+    from repro_torch.trainer.checkpoint import CheckpointManager
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    ck = CheckpointManager(str(TRAIN_CKPT_DIR), keep=1)
+    state = {"params": params, "opt_state": opt_state}
+    sync()
+    t0 = time.perf_counter()
+    ck.save(TRAIN_STEPS, state, async_write=True)
+    stall = time.perf_counter() - t0
+    ck.wait()
+    written = time.perf_counter() - t0
+    path = TRAIN_CKPT_DIR / f"ckpt_{TRAIN_STEPS:08d}.npz"
+    nbytes = path.stat().st_size
+    fresh = build_model(cfg).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 1), DEVICE)
+    template = {"params": fresh, "opt_state": opt.init(fresh)}
+    sync()
+    t0 = time.perf_counter()
+    got = ck.restore(template)
+    sync()
+    restore_s = time.perf_counter() - t0
+    del template, fresh
+    if not trees_equal(got, state):
+        raise AssertionError("restored checkpoint differs from the saved "
+                             "state")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    log({"train_checkpoint": {
+        "step": TRAIN_STEPS, "file_bytes": nbytes,
+        "state_bytes": tree_bytes(state), "stall_s": stall,
+        "write_s": written, "restore_s": restore_s, "bit_equal": True}})
+    return got["params"]
+
+
+def phase_train_serve(cfg, params, main_tps):
+    """The restored parameters served through run_queue on the main
+    path's workload with the kernels (``attn_impl="flash"``): phase 18's
+    gates with this phase's rehearsed windows and forwards."""
+    phase_zoo_main(dataclasses.replace(cfg, attn_impl="flash"), params,
+                   main_tps, want=(TRAIN_WINDOWS, TRAIN_FORWARDS),
+                   key="train_serve")
+
+
+def leaf_paths(tree, prefix=""):
+    """The ``/``-joined path of every leaf, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in leaf_paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def nondeterministic_grad_leaves(cfg, params) -> list:
+    """The parameter leaves whose gradient differs between two backward
+    passes of the same loss on the same batch."""
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.trainer.optimizer import tree_leaves
+    from repro_torch.trainer.train_loop import value_and_grad
+    batch = next(train_batches(cfg.vocab_size, 0, 1))
+    loss_fn = build_model(cfg).loss_fn
+    g1, g2 = (tree_leaves(value_and_grad(loss_fn, params, batch)[1])
+              for _ in range(2))
+    return [p for p, a, b in zip(leaf_paths(params), g1, g2)
+            if not torch.equal(a, b)]
+
+
+def phase_train_resume():
+    """smollm's width at TRAIN_RESUME_LAYERS layers: 4 steps straight
+    against 2 steps, a checkpoint, a restore and 2 more. Fails beyond the
+    reference test's 1e-5; when not bit-equal, names the parameter leaves
+    whose gradient differs between two identical backward passes."""
+    import shutil
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.trainer import optimizer as opt
+    from repro_torch.trainer.checkpoint import CheckpointManager
+    from repro_torch.trainer.optimizer import tree_leaves
+    cfg = train_config(TRAIN_RESUME_LAYERS)
+    tcfg = dict(TRAIN_TCFG, total_steps=8)
+    p0 = build_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(
+        SEED), DEVICE)
+    o0 = opt.init(p0)
+    pA, _, _ = train_run(cfg, p0, o0, 0, 4, tcfg)
+    pB, oB, _ = train_run(cfg, p0, o0, 0, 2, tcfg)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    ck = CheckpointManager(str(TRAIN_CKPT_DIR), keep=1)
+    ck.save(2, {"params": pB, "opt_state": oB})
+    got = ck.restore({"params": p0, "opt_state": o0})
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    pB2, _, _ = train_run(cfg, got["params"], got["opt_state"], 2, 2, tcfg)
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(tree_leaves(pA), tree_leaves(pB2)))
+    bit_equal = trees_equal(pA, pB2)
+    row = {"model": cfg.name, "layers": cfg.num_layers,
+           "max_abs_diff": diff, "bit_equal": bit_equal,
+           "restore_bit_equal": trees_equal(got, {"params": pB,
+                                                  "opt_state": oB})}
+    if not bit_equal:
+        row["nondeterministic_grad_leaves"] = nondeterministic_grad_leaves(
+            cfg, p0)
+    log({"train_resume": row})
+    if diff > 1e-5 or not row["restore_bit_equal"]:
+        raise AssertionError(f"resume differs from the straight run: {row}")
+
+
+def train_parity_batch(cfg, rng):
+    """A numpy batch for ``cfg``'s loss (TRAIN_PARITY_BATCH): tokens,
+    labels, a mask with ~20% zeros; Whisper's frames, Qwen2-VL's patches
+    and three-stream positions."""
+    import numpy as np
+    B, S = TRAIN_PARITY_BATCH
+    b = {"tokens": rng.integers(1, cfg.vocab_size, (B, S)).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+         "mask": (rng.random((B, S)) > 0.2).astype(np.float32)}
+    if cfg.family == "audio":
+        b["frames"] = rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)
+    if cfg.family == "vlm":
+        sv = TRAIN_PARITY_PATCHES
+        b["vision_embeds"] = (0.02 * rng.standard_normal(
+            (B, sv, cfg.d_model))).astype(np.float32)
+        b["positions"] = np.broadcast_to(np.arange(sv + S), (3, B, sv + S)
+                                         ).astype(np.int32).copy()
+    return b
+
+
+def compare_train_states(tag, ref, got, floor, steps,
+                         moments=True) -> dict:
+    """The CPU's state ``ref`` against the card's ``got`` (each (params,
+    opt_state) in the reference's layout as numpy): with ``moments`` every
+    moment within TRAIN_MOM_TOL x the leaf's largest value; every
+    parameter within
+    TRAIN_PARAM_TOL except at the rounding floor (``floor``, updated
+    here), there within 2 lr per step. Returns the largest differences."""
+    import numpy as np
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items()
+                    for k2, v2 in flat(v, f"{prefix}/{k}").items()}
+        return {prefix: np.asarray(tree, np.float32)}
+
+    r = flat({"p": ref[0], "mu": ref[1]["mu"], "nu": ref[1]["nu"]})
+    g = flat({"p": got[0], "mu": got[1]["mu"], "nu": got[1]["nu"]})
+    out = {"param": 0.0, "param_off_floor": 0.0, "moment_rel": 0.0,
+           "floor_elements": 0}
+    for k, want in r.items():
+        if k.startswith("/nu/"):
+            rms = np.sqrt(np.mean(want)) if want.size else 0.0
+            low = (want > 0) & (np.sqrt(want) < TRAIN_FLOOR * rms)
+            floor[k[4:]] = floor.get(k[4:], False) | low
+    for k, want in r.items():
+        d = np.abs(g[k] - want)
+        if k.startswith("/p/"):
+            low = floor[k[3:]]
+            off = float(d[~low].max(initial=0.0))
+            out["param"] = max(out["param"], float(d.max(initial=0.0)))
+            out["param_off_floor"] = max(out["param_off_floor"], off)
+            out["floor_elements"] += int(low.sum())
+            if off > TRAIN_PARAM_TOL or \
+                    float(d.max(initial=0.0)) > 2 * TRAIN_PARITY_LR * steps:
+                raise AssertionError(f"{tag} {k}: {off} off the floor, "
+                                     f"{float(d.max(initial=0.0))} in all")
+        elif moments:
+            scale = max(float(np.abs(want).max(initial=0.0)), 1e-30)
+            rel = float(d.max(initial=0.0)) / scale
+            out["moment_rel"] = max(out["moment_rel"], rel)
+            if rel > TRAIN_MOM_TOL:
+                raise AssertionError(f"{tag} {k}: moment {rel} of its scale")
+    return out
+
+
+def train_parity(arch) -> dict:
+    """``arch``'s reduced config in f32 activations: the same parameters
+    and batches through TRAIN_PARITY_STEPS steps (microbatches 2) on the
+    card and on the CPU, run freely, then each step again from the CPU's
+    state carried onto the card (``compare_train_states``; the free run's
+    moments after its first step only: an element moved differently at
+    the rounding floor changes the next gradients by up to ~1%).
+    Metrics within TRAIN_METRIC_RTOL at every step (the looser one after
+    the free run's first step)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import params_to_numpy
+    from repro_torch.trainer import optimizer as opt
+    from repro_torch.trainer.train_loop import make_train_step
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              activation_dtype="float32")
+    model = build_model(cfg)
+    step = make_train_step(model, TrainConfig(
+        learning_rate=TRAIN_PARITY_LR, warmup_steps=1, total_steps=10,
+        microbatches=2))
+    rng = np.random.default_rng(SEED)
+    batches = [train_parity_batch(cfg, rng)
+               for _ in range(TRAIN_PARITY_STEPS)]
+    p_cpu = model.init(torch.Generator().manual_seed(SEED), "cpu")
+
+    def on(tree, dev):
+        return opt.tree_map(lambda t: t.to(dev), tree)
+
+    def host(state):
+        return params_to_numpy(state[0]), params_to_numpy(state[1])
+
+    row = {"model": arch, "steps": TRAIN_PARITY_STEPS, "free": [],
+           "carried": []}
+    for mode in ("free", "carried"):
+        cpu = [p_cpu, opt.init(p_cpu)]
+        card = on(cpu, DEVICE)
+        floor = {}
+        for i, b in enumerate(batches):
+            if mode == "carried":
+                card, floor = on(cpu, DEVICE), {}
+            tb = {k: torch.as_tensor(v) for k, v in b.items()}
+            *cpu, mc = step(*cpu, tb)
+            *card, mg = step(*card, on(tb, DEVICE))
+            rtol = TRAIN_METRIC_RTOL[mode == "free" and i > 0]
+            for k in ("loss", "lr", "grad_norm"):
+                a, c = float(mc[k]), float(mg[k])
+                if abs(a - c) > rtol * abs(a):
+                    raise AssertionError(f"{arch} {mode} step {i + 1} {k}: "
+                                         f"cpu {a} card {c}")
+            free = mode == "free"
+            d = compare_train_states(f"{arch} {mode} step {i + 1}",
+                                     host(cpu), host(card), floor,
+                                     i + 1 if free else 1,
+                                     moments=not free or i == 0)
+            row[mode].append({"loss_cpu": float(mc["loss"]),
+                              "loss_card": float(mg["loss"]), **d})
+    return row
+
+
+def phase_train_f32_parity() -> list:
+    rows = [train_parity(arch) for arch in TRAIN_FAMILIES]
+    for row in rows:
+        log({"train_f32_parity": row})
+    return rows
+
+
+def phase_train_grad_refusal() -> dict:
+    """On the card each float dispatcher (K3-K6) raises on an input that
+    requires grad, and launches nothing."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = DEVICE
+    req = dict(device=dev, requires_grad=True)
+    q = torch.randn((1, 8, 2, 64), **req)
+    kv = torch.randn((1, 8, 1, 64), device=dev)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    st = torch.zeros((1, 1, 64, 64), device=dev)
+    x = torch.randn((1, 8, 1, 64), **req)
+    calls = {
+        "flash_attention": lambda: ops.flash_attention(q, kv, kv),
+        "decode_attention": lambda: ops.decode_attention(q[:, 0], kv, kv,
+                                                         one),
+        "wkv6_chunked": lambda: ops.wkv6(x, x, x, -x.abs(),
+                                         torch.randn((1, 64), device=dev),
+                                         st),
+        "ssd_chunked": lambda: ops.ssd(
+            x, torch.rand((1, 8, 1), device=dev),
+            -torch.rand((1, 8, 1), device=dev),
+            torch.randn((1, 8, 64), device=dev),
+            torch.randn((1, 8, 64), device=dev), st),
+    }
+    ops.reset_launch_counts()
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "no gradient" not in str(e):
+                raise
+            out[name] = "raised"
+        else:
+            raise AssertionError(f"{name} returned an output for an input "
+                                 "that requires grad")
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"refused calls launched: "
+                             f"{ops.launch_counts()}")
+    log({"train_grad_refusal": out})
+    return out
+
+
+def phase_train(main_tps) -> dict:
+    """Phase 20: train, checkpoint, serve the restored parameters, resume,
+    the families' f32 card-vs-CPU steps and the kernels' refusal."""
+    import torch
+    t0 = time.perf_counter()
+    cfg, params, opt_state = phase_train_main()
+    if DEVICE == "cuda":
+        train_profile(cfg, params, opt_state)
+    served = phase_train_checkpoint(cfg, params, opt_state)
+    del params, opt_state
+    phase_train_serve(cfg, served, main_tps)
+    del served
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    phase_train_resume()
+    phase_train_f32_parity()
+    if DEVICE == "cuda":
+        phase_train_grad_refusal()
+    secs = time.perf_counter() - t0
+    log({"train_s": secs})
+    return {"seconds": secs}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3323,6 +3827,7 @@ def main() -> int:
     log({"model_zoo_s": {"kernels": zoo_kernels_s,
                          "models": time.perf_counter() - t0}})
     phase_vlm_audio(tps)
+    phase_train(tps)
     k4_row = k4[("bfloat16", "gpt2-large")]
     k5_row = k5["full-width"]
     k6_row = k6["full-width"]

@@ -10,6 +10,14 @@ version (that is how the tests run without a GPU); a CUDA tensor launches
 the hand-written kernel, and a kernel that cannot take the input raises
 instead of quietly running the plain version. Each CUDA wrapper counts its launches in
 ``<wrapper>.launches``.
+
+No kernel has a gradient, as no Pallas kernel of the reference has one
+(``jax.grad`` through them raises). A CUDA kernel's output is a new tensor
+with no ``grad_fn``, so a gradient through it would quietly be zero: the
+float dispatchers (K3-K6) therefore raise on a CUDA tensor that requires
+grad while autograd is recording (``refuse_grad``). Training runs
+``attn_impl="xla"``, the plain versions, which are differentiable; serving
+runs under ``torch.inference_mode`` and never meets the check.
 """
 from __future__ import annotations
 
@@ -50,10 +58,23 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd is recording and any of ``tensors`` requires
+    grad: kernel ``name`` has no gradient, and its output would carry
+    none."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no gradient (as the reference's "
+            "Pallas kernel has none), and an input requires grad; train "
+            "with attn_impl='xla', which runs the differentiable plain "
+            "PyTorch version")
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """q (B,S,Hq,D); k,v (B,Sk,Hkv,D) -> (B,S,Hq,D)."""
     if _on_cpu(q):
         return flash_attention_plain(q, k, v, causal=causal)
+    refuse_grad("flash_attention", q, k, v)
     return flash_attention_cuda(q, k, v, causal=causal)
 
 
@@ -62,6 +83,7 @@ def decode_attention(q, cache_k, cache_v, kv_len):
     Contract: 1 <= kv_len[b] <= S (``kernels/decode_attention.py``)."""
     if _on_cpu(q):
         return decode_attention_plain(q, cache_k, cache_v, kv_len)
+    refuse_grad("decode_attention", q, cache_k, cache_v)
     return decode_attention_cuda(q, cache_k, cache_v, kv_len)
 
 
@@ -72,6 +94,7 @@ def wkv6(r, k, v, lw, u, state0):
     both."""
     if _on_cpu(r):
         return wkv6_chunked_plain(r, k, v, lw, u, state0)
+    refuse_grad("wkv6_chunked", r, k, v, lw, u, state0)
     return wkv6_chunked_cuda(r, k, v, lw, u, state0)
 
 
@@ -82,6 +105,7 @@ def ssd(x, dt, la, Bm, Cm, h0):
     its Pallas kernel."""
     if _on_cpu(x):
         return ssd_chunked_plain(x, dt, la, Bm, Cm, h0)
+    refuse_grad("ssd_chunked", x, dt, la, Bm, Cm, h0)
     return ssd_chunked_cuda(x, dt, la, Bm, Cm, h0)
 
 

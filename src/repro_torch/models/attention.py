@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import Params, dense_init, pdtype
+from repro_torch.models.common import Params, dense_init, pdtype, remat
 
 
 def init_attention(cfg: ModelConfig, generator: torch.Generator, device,
@@ -108,10 +108,11 @@ def attention_chunked(q, k, v, *, causal: bool, chunk: int = 1024,
     loop (f32 scores, the -1e30 mask bias, running max / sum / output in
     f32, each chunk's PV product in q's dtype). Peak score memory is
     (B, Hq, Sq, chunk). A ragged ``Sk % chunk != 0`` falls back to
-    ``attention_direct``, as in the reference. ``unroll`` and
-    ``chunk_remat`` pick how XLA traces the reference's scan (unrolled for
-    the dry-run's cost analysis, rematerialised in backward); an eager
-    loop has neither choice to make, so both are accepted and ignored."""
+    ``attention_direct``, as in the reference. ``chunk_remat``
+    rematerialises each chunk's step in backward, as the reference's
+    ``jax.checkpoint`` of its scan body. ``unroll`` picks how XLA traces
+    the reference's scan (unrolled for the dry-run's cost analysis); an
+    eager loop has no such choice, so it is accepted and ignored."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if Sk % chunk != 0:
@@ -121,11 +122,8 @@ def attention_chunked(q, k, v, *, causal: bool, chunk: int = 1024,
     scale = torch.tensor(float(D), dtype=torch.float32).rsqrt().item()
     qg = q.reshape(B, Sq, Hkv, G, D).float()
     q_pos = torch.arange(Sq, device=dev)[:, None]
-    m = torch.full((B, Hkv, G, Sq), -1e30, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
-    o = torch.zeros((B, Hkv, G, Sq, D), dtype=torch.float32, device=dev)
-    for c0 in range(0, Sk, chunk):
-        kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+
+    def body(m, l, o, kc, vc, c0: int):
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc.float()) * scale
         k_pos = c0 + torch.arange(chunk, device=dev)
         mask = torch.ones((Sq, chunk), dtype=torch.bool, device=dev)
@@ -140,7 +138,14 @@ def attention_chunked(q, k, v, *, causal: bool, chunk: int = 1024,
         l = l * alpha + p.sum(dim=-1)
         o = o * alpha[..., None] + torch.einsum(
             "bhgqk,bkhd->bhgqd", p.to(q.dtype), vc).float()
-        m = m_new
+        return m_new, l, o
+
+    m = torch.full((B, Hkv, G, Sq), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
+    o = torch.zeros((B, Hkv, G, Sq, D), dtype=torch.float32, device=dev)
+    for c0 in range(0, Sk, chunk):
+        m, l, o = remat(chunk_remat, body, m, l, o, k[:, c0:c0 + chunk],
+                        v[:, c0:c0 + chunk], c0)
     out = o / torch.clamp_min(l[..., None], 1e-30)
     return out.reshape(B, Hq, Sq, D).transpose(1, 2).to(q.dtype)
 

@@ -1,7 +1,8 @@
 """Shared model building blocks: dtypes, norms, embeddings, logits head.
 
-Port of ``repro.models.common`` for the families the port serves (the
-dense decoder and RWKV6).
+Port of ``repro.models.common``: the blocks every family shares, the
+training losses (``cross_entropy_loss``, ``chunked_cross_entropy``) and
+``remat``, the counterpart of the reference's ``jax.checkpoint``.
 Parameters are nested dicts of torch tensors in the reference's layouts:
 dense weights are ``(in, out)`` and are cast to the activation dtype at each
 matmul, exactly as the reference does, so parameters converted from the
@@ -9,9 +10,10 @@ reference need no transposes. Norm statistics are taken in f32.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -126,3 +128,62 @@ def logits_head(cfg: ModelConfig, p: Params, x):
     out = torch.matmul(x, w.to(x.dtype).t())
     return out.to(_DTYPES[cfg.logits_dtype])
 
+
+
+# ---------------------------------------------------------------------------
+# Training: losses, rematerialisation
+# ---------------------------------------------------------------------------
+
+
+def remat(enabled: bool, fn: Callable, *args):
+    """``fn(*args)``, rematerialised in backward when ``enabled`` and
+    autograd is recording: the counterpart of the reference's
+    ``jax.checkpoint`` (``torch.utils.checkpoint``, non-reentrant, so
+    ``fn`` may close over the parameters)."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _nll(logits, labels):
+    """Per-token negative log-likelihood in f32: logsumexp - gold logit."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - gold
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Token-level CE; logits (..., V) any float dtype, labels (...) int.
+    With ``mask`` a masked mean over max(sum(mask), 1) tokens."""
+    nll = _nll(logits, labels)
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def chunked_cross_entropy(cfg: ModelConfig, emb_params: Params, x, labels,
+                          chunk: int = 512, mask=None):
+    """CE over sequence chunks without materialising (B, S, V) logits, as
+    the reference: each chunk's logits, logsumexp and masked sum, with the
+    chunk body rematerialised in backward (without it autograd keeps every
+    chunk's logits and the memory win is gone). The reference scans or
+    unrolls the chunks (``cfg.scan_layers``); an eager loop is both."""
+    B, S, D = x.shape
+    n = S // chunk
+    assert n * chunk == S, f"seq {S} not divisible by ce chunk {chunk}"
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+
+    def body(xc, yc, mc):
+        nll = _nll(logits_head(cfg, emb_params, xc), yc)
+        return torch.sum(nll * mc), torch.sum(mc)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        t, c = remat(True, body, x[:, sl], labels[:, sl], mask[:, sl].float())
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)

@@ -25,8 +25,12 @@ the activation dtype, ``wkv`` (L, B, H, K, K) in f32 — and the serving
 cache adds ``index``, the number of tokens seen, kept on the host as an
 int. ``forward_hidden`` writes each layer's new state into the state it is
 given, in place (one allocation per prefill, none per decode step beyond
-the step's own temporaries). ``loss_fn`` waits for the trainer slice; the
-reference's sharding hints (``constrain``) have no counterpart here.
+the step's own temporaries). The training loss ``loss_fn`` runs the layers
+from the zero state and keeps no state (``train_hidden``: an in-place
+write would break autograd), through the plain chunked form under
+``attn_impl="xla"``; kernel K5 has no gradient, as the reference's Pallas
+kernel has none. The reference's sharding hints (``constrain``) have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -41,9 +45,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.rwkv6_chunk import (
     wkv6_chunked_plain as wkv6_chunked, wkv6_step)
 from repro_torch.models.common import (Params, adtype, apply_norm,
-                                       dense_init, embed_tokens,
-                                       init_embeddings, init_norm,
-                                       logits_head, pdtype)
+                                       chunked_cross_entropy,
+                                       cross_entropy_loss, dense_init,
+                                       embed_tokens, init_embeddings,
+                                       init_norm, logits_head, pdtype, remat)
 
 DECAY_LORA = 64
 
@@ -239,6 +244,32 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens,
         state["cm_last"][l] = cl
         state["wkv"][l] = wk
     return apply_norm(cfg, params["final_norm"], x), state
+
+
+def train_hidden(cfg: ModelConfig, params: Params, tokens):
+    """tokens (B,S) -> final-normed hidden (B,S,d) from the zero state,
+    keeping no state: ``forward_hidden``'s arithmetic for the loss, each
+    layer rematerialised in backward under ``cfg.remat``."""
+    B = tokens.shape[0]
+    zero = make_state(cfg, B, tokens.device)
+    x = embed_tokens(cfg, params["embed"], tokens)
+    for l, lp in enumerate(params["layers"]):
+        state = (zero["tm_last"][l], zero["cm_last"][l], zero["wkv"][l])
+        x = remat(cfg.remat, lambda x, lp, state: block(
+            cfg, lp, x, state, single_step=False)[0], x, lp, state)
+    return apply_norm(cfg, params["final_norm"], x)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch):
+    """batch: tokens (B,S), labels (B,S) [, mask] -> mean token
+    cross-entropy (f32, 0-d)."""
+    x = train_hidden(cfg, params, batch["tokens"])
+    if cfg.ce_impl == "chunked":
+        return chunked_cross_entropy(cfg, params["embed"], x,
+                                     batch["labels"], chunk=cfg.ce_chunk,
+                                     mask=batch.get("mask"))
+    logits = logits_head(cfg, params["embed"], x)
+    return cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens,

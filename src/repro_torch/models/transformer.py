@@ -3,10 +3,10 @@ SmolLM, StarCoder2, Granite), the MoE family (qwen3-moe, phi3.5-moe) and
 the vlm family (Qwen2-VL: M-RoPE, and stub patch embeddings prepended to
 the token embeddings, ``prefix_embeds``).
 
-Port of ``repro.models.transformer`` for the serving paths: ``block_forward``
-and ``forward_hidden`` (the pipeline server's stage compute), and the
-KV-cache engine's ``make_cache``, ``prefill``, ``block_decode`` and
-``decode_step``, over a parameter dict whose ``"layers"`` entry is a list
+Port of ``repro.models.transformer``: ``block_forward`` and
+``forward_hidden`` (the pipeline server's stage compute), the KV-cache
+engine's ``make_cache``, ``prefill``, ``block_decode`` and ``decode_step``,
+and the training loss ``loss_fn``, over a parameter dict whose ``"layers"`` entry is a list
 of per-layer dicts (the reference stacks them along a leading layer axis
 for ``jax.lax.scan``; PyTorch runs eagerly, so the layers are a plain
 loop). A layer's feed-forward is the MLP (``models/mlp.py``) or, for the
@@ -23,6 +23,10 @@ kept on the host as an int. Two ways to get parameters:
   reference's distributions (normal × 0.02 for dense and embedding
   matrices, unit/zero norms), made directly on the device, every leaf in
   ``cfg.param_dtype``.
+
+``params_to_numpy(tree)`` is ``params_from_jax``'s inverse: the layer lists
+restacked along a leading axis, every leaf a numpy array (the checkpoints'
+layout, which is the reference's).
 """
 from __future__ import annotations
 
@@ -36,8 +40,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (Params, adtype, apply_norm,
-                                       embed_tokens, init_embeddings,
-                                       init_norm, logits_head)
+                                       chunked_cross_entropy,
+                                       cross_entropy_loss, embed_tokens,
+                                       init_embeddings, init_norm,
+                                       logits_head, remat)
 from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.rope import apply_rotary, positional_angles
 
@@ -139,6 +145,46 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Params:
     return out
 
 
+def _stack(layers: list) -> Any:
+    if isinstance(layers[0], dict):
+        return {k: _stack([l[k] for l in layers]) for k in layers[0]}
+    return torch.stack(layers)
+
+
+def leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on any device -> a numpy array. bf16 (numpy has no such
+    type) becomes raw 2-byte ``|V2`` values, which is what
+    ``np.asarray`` of a JAX bf16 array stores in a ``.npz``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def leaf_from_numpy(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``leaf_to_numpy``'s inverse: ``a`` as a tensor of ``like``'s dtype
+    on ``like``'s device (``|V2`` values read as bf16 bits first)."""
+    a = a if a.flags.c_contiguous else a.copy()
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """This package's parameter (or moment) tree -> the reference's layout
+    as numpy arrays: ``params_from_jax``'s inverse. Each list of per-layer
+    dicts (``layers``, ``mamba``, ``encoder``, ``decoder``) is stacked
+    along a leading layer axis; every leaf keeps its shape and dtype (bf16
+    as ``|V2``, ``leaf_to_numpy``)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return params_to_numpy(_stack(tree))
+    return leaf_to_numpy(tree)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -194,7 +240,8 @@ def _angles(cfg: ModelConfig, positions):
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
-                   prefix_embeds=None, collect_kv: bool = False):
+                   prefix_embeds=None, collect_kv: bool = False,
+                   return_aux: bool = False):
     """tokens (B,S) -> final-normed hidden (B,S_total,d) through every
     layer.
 
@@ -202,10 +249,12 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
     patch embeddings) prepended to the token embeddings, so S_total =
     Sv + S. ``positions`` (B, S_total) feed learned positions, RoPE and
     text-only M-RoPE, (3, B, S_total) the three M-RoPE streams (default
-    0..S_total-1). With ``collect_kv`` returns (hidden, (k, v)) with k, v
-    stacked per layer: (L, B, S_total, Hkv, D). The MoE load-balance loss,
-    which the reference returns too, is a training quantity and is
-    dropped here."""
+    0..S_total-1). With ``collect_kv`` the result is (hidden, (k, v)),
+    k, v stacked per layer: (L, B, S_total, Hkv, D). With ``return_aux``
+    the MoE load-balance loss, the mean over layers (0.0 for a dense
+    layer), is appended: (hidden, aux) or (hidden, (k, v), aux). Under
+    ``cfg.remat`` each layer is rematerialised in backward, as the
+    reference's ``jax.checkpoint`` of its layer body."""
     require_decoder(cfg)
     learned = cfg.pos_type == "learned" and positions is not None and \
         positions.dim() == 2
@@ -218,16 +267,52 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
         positions = torch.arange(S, device=tokens.device)[None, :].expand(
             B, S)
     angles = _angles(cfg, positions)
-    ks, vs = [], []
+    ks, vs, auxs = [], [], []
     for lp in params["layers"]:
-        x, (k, v, _) = block_forward(cfg, lp, x, angles)
+        x, (k, v, aux) = remat(
+            cfg.remat, lambda x, lp: block_forward(cfg, lp, x, angles), x,
+            lp)
+        auxs.append(aux)
         if collect_kv:
             ks.append(k)
             vs.append(v)
     x = apply_norm(cfg, params["final_norm"], x)
+    out = (x,)
     if collect_kv:
-        return x, (torch.stack(ks), torch.stack(vs))
-    return x
+        out += ((torch.stack(ks), torch.stack(vs)),)
+    if return_aux:
+        out += (torch.stack(auxs).mean() if cfg.family == "moe" else 0.0,)
+    return out[0] if len(out) == 1 else out
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """batch: tokens (B,S), labels (B,S) [, mask, positions,
+    vision_embeds] -> the mean token cross-entropy (f32, 0-d), plus
+    ``moe_aux_weight`` x the load-balance loss for the MoE family. With
+    ``vision_embeds`` (B, Sv, d) the loss covers the text region only."""
+    tokens = batch["tokens"]
+    prefix = batch.get("vision_embeds")
+    x, aux = forward_hidden(cfg, params, tokens,
+                            positions=batch.get("positions"),
+                            prefix_embeds=prefix, return_aux=True)
+    if prefix is not None:  # loss only over the text region
+        x = x[:, prefix.shape[1]:, :]
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if cfg.ce_impl == "chunked":
+        loss = chunked_cross_entropy(cfg, params["embed"], x, labels,
+                                     chunk=cfg.ce_chunk, mask=mask)
+    else:
+        logits = logits_head(cfg, params["embed"], x)
+        loss = cross_entropy_loss(logits, labels, mask)
+    if cfg.family == "moe":
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,10 @@ The serving cache holds ``sk`` / ``sv`` (L, B, capacity, H, D), the
 decoder's self-attention K/V, written in place at every step, and ``ck``
 / ``cv`` (L, B, S_enc, H, D), the cross-attention K/V of the encoder
 output, written once at prefill; ``index`` is a host int.
+
+The training loss ``loss_fn`` encodes the frames and runs the decoder over
+the tokens; under ``cfg.remat`` each encoder and decoder layer is
+rematerialised in backward, as the reference's ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -31,9 +35,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer
 from repro_torch.models.common import (Params, adtype, apply_norm,
-                                       dense_init, embed_tokens,
-                                       init_embeddings, init_norm,
-                                       logits_head, pdtype)
+                                       chunked_cross_entropy,
+                                       cross_entropy_loss, dense_init,
+                                       embed_tokens, init_embeddings,
+                                       init_norm, logits_head, pdtype, remat)
 from repro_torch.models.mlp import apply_mlp, init_mlp
 
 
@@ -160,7 +165,7 @@ def encode(cfg: ModelConfig, params: Params, frames):
     S = frames.shape[1]
     x = frames.to(adtype(cfg)) + params["enc_pos"][:S][None].to(adtype(cfg))
     for lp in params["encoder"]:
-        x = enc_block(cfg, lp, x)
+        x = remat(cfg.remat, lambda x, lp: enc_block(cfg, lp, x), x, lp)
     return apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -172,13 +177,27 @@ def decode_hidden(cfg: ModelConfig, params: Params, tokens, enc_out,
     x = embed_tokens(cfg, params["embed"], tokens)
     kvs = []
     for lp in params["decoder"]:
-        x, kv = dec_block(cfg, lp, x, enc_out)
+        x, kv = remat(cfg.remat, lambda x, lp: dec_block(cfg, lp, x, enc_out),
+                      x, lp)
         if collect_kv:
             kvs.append(kv)
     x = apply_norm(cfg, params["final_norm"], x)
     if not collect_kv:
         return x, None
     return x, tuple(torch.stack(t) for t in zip(*kvs))
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch):
+    """batch: frames (B,S_enc,d), tokens (B,S), labels (B,S) [, mask] ->
+    mean token cross-entropy (f32, 0-d)."""
+    enc_out = encode(cfg, params, batch["frames"])
+    x, _ = decode_hidden(cfg, params, batch["tokens"], enc_out)
+    if cfg.ce_impl == "chunked":
+        return chunked_cross_entropy(cfg, params["embed"], x,
+                                     batch["labels"], chunk=cfg.ce_chunk,
+                                     mask=batch.get("mask"))
+    logits = logits_head(cfg, params["embed"], x)
+    return cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
 
 
 def make_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None,

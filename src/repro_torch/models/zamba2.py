@@ -22,7 +22,12 @@ contiguous (B, capacity, Hkv, D) tensor for K4; ``conv`` (L, B, W-1,
 conv channels) in the activation dtype; ``ssm`` (L, B, H, N, P) in f32;
 and ``index``, the number of filled positions, kept on the host as an int.
 Prefill writes into a cache it allocates once and decode updates it in
-place. ``loss_fn`` waits for the trainer slice.
+place. The training loss ``loss_fn`` runs ``forward_hidden`` without a
+cache, each group (its Mamba2 blocks and the shared block) rematerialised
+in backward under ``cfg.remat``, as the reference's ``jax.checkpoint`` of
+its group body; training takes the plain chunked SSD form under
+``attn_impl="xla"`` (kernel K6 has no gradient, as the reference's Pallas
+kernel has none).
 """
 from __future__ import annotations
 
@@ -34,8 +39,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn, mamba2 as m2
 from repro_torch.models.common import (Params, adtype, apply_norm,
-                                       embed_tokens, init_embeddings,
-                                       init_norm, logits_head)
+                                       chunked_cross_entropy,
+                                       cross_entropy_loss, embed_tokens,
+                                       init_embeddings, init_norm,
+                                       logits_head, remat)
 from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.rope import apply_rotary, positional_angles
 
@@ -134,7 +141,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
 
     With ``cache`` (``make_cache``'s layout, capacity >= S) each block's
     conv tail and SSM state, and each group's K/V in rows 0..S-1, are
-    written into it in place."""
+    written into it in place. Without it, under ``cfg.remat``, each group
+    is rematerialised in backward."""
     E = cfg.attn_every
     B, S = tokens.shape
     x = embed_tokens(cfg, params["embed"], tokens)
@@ -143,7 +151,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
             B, S)
     angles = positional_angles(cfg, positions)
     sp = params["shared"]
-    for g in range(n_groups(cfg)):
+
+    def group(x, g: int):
         for l in range(g * E, (g + 1) * E):
             lp = params["mamba"][l]
             h = apply_norm(cfg, lp["norm"], x)
@@ -156,7 +165,23 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
         if cache is not None:
             cache["k"][g, :, :S] = k
             cache["v"][g, :, :S] = v
+        return x
+
+    for g in range(n_groups(cfg)):
+        x = remat(cfg.remat and cache is None, group, x, g)
     return apply_norm(cfg, params["final_norm"], x)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch):
+    """batch: tokens (B,S), labels (B,S) [, mask] -> mean token
+    cross-entropy (f32, 0-d)."""
+    x = forward_hidden(cfg, params, batch["tokens"])
+    if cfg.ce_impl == "chunked":
+        return chunked_cross_entropy(cfg, params["embed"], x,
+                                     batch["labels"], chunk=cfg.ce_chunk,
+                                     mask=batch.get("mask"))
+    logits = logits_head(cfg, params["embed"], x)
+    return cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens,

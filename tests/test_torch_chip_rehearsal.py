@@ -246,3 +246,67 @@ def test_phase19_rehearsal(monkeypatch, capsys):
     assert set(parity) == {"qwen2-vl-7b image path", "whisper-large-v3"}
     assert all(r["equal"] for r in parity.values())
     assert parity["qwen2-vl-7b image path"]["layers"] == 8
+
+
+def test_phase20_rehearsal(monkeypatch, capsys, tmp_path):
+    """Phase 20 (``train``) at a tiny width and smollm's full depth (32
+    layers), on the plain PyTorch path, with K3's and K4's dispatches
+    counted as their launches: the full-depth training run launches no
+    kernel (its K1-K6 counts stay 0) and its loss falls; the checkpoint
+    restores bit-equal; the restored parameters served through
+    ``run_queue`` on the 32-layer topology (16 stages x 6 replicas) emit
+    16 tokens per stream in ``TRAIN_WINDOWS`` windows, each running the DP
+    once (K1), with ``TRAIN_FORWARDS`` stage forwards (K3 = forwards x 2
+    layers, K4 = 0); resuming from a checkpoint equals the straight run
+    bit for bit; every family's f32 steps hold (the CPU against itself
+    here). The stream's rows are shortened to 64 tokens (no count depends
+    on their length). The CPU runs no K1 kernel, so run_queue's K1 gate is
+    replaced by the DP windows the router counts."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "TRAIN_SEQ", 64)
+    monkeypatch.setattr(cs, "TRAIN_CKPT_DIR", tmp_path / "ckpt")
+    _count_dispatches(monkeypatch)
+    orig = cs.train_config
+    seen = {}
+
+    def tiny(layers=None):
+        return dataclasses.replace(orig(layers), **TINY)
+
+    def check_served(cfg, srv, done, counts, forwards):
+        per_stage = cfg.num_layers // srv.partition.n_stages
+        assert counts["flash_attention"] == forwards * per_stage
+        seen["main"] = dict(
+            windows=srv.router.stats.windows,
+            k1=srv.router.stats.device_calls, forwards=forwards,
+            k3=counts["flash_attention"], k4=counts["decode_attention"],
+            tokens=[r.metrics.tokens for r in done])
+
+    monkeypatch.setattr(cs, "train_config", tiny)
+    monkeypatch.setattr(cs, "check_served", check_served)
+    cs.phase_train(0.0)
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        if line.startswith("{"):
+            obj = json.loads(line)
+            key = next(iter(obj))
+            rows.setdefault(key, []).append(obj[key])
+    main = rows["train_main"][0]
+    assert main["layers"] == 32 and main["steps"] == cs.TRAIN_STEPS == 20
+    assert set(main["launches"].values()) == {0}
+    assert main["loss_last"] < main["loss_first"]
+    assert rows["train_checkpoint"][0]["bit_equal"]
+    assert seen["main"] == dict(
+        windows=cs.TRAIN_WINDOWS, k1=cs.TRAIN_WINDOWS,
+        forwards=cs.TRAIN_FORWARDS, k3=2 * cs.TRAIN_FORWARDS, k4=0,
+        tokens=[cs.NEW_TOKENS] * 4)
+    assert (cs.TRAIN_WINDOWS, cs.TRAIN_FORWARDS) == (34, 1072)
+    served = rows["train_serve"][0]
+    assert served["peers"] == 96 and served["layers"] == 32
+    resume = rows["train_resume"][0]
+    assert resume["bit_equal"] and resume["max_abs_diff"] == 0.0
+    assert resume["layers"] == cs.TRAIN_RESUME_LAYERS
+    parity = {r["model"]: r for r in rows["train_f32_parity"]}
+    assert tuple(parity) == cs.TRAIN_FAMILIES
+    assert all(len(r["free"]) == len(r["carried"]) == cs.TRAIN_PARITY_STEPS
+               for r in parity.values())
