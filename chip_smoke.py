@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails (they
 run in the order 1, 15, 14, 10, 2, 18's and 19's kernel checks, 11-13, 3,
-4, 16, 17, 5-9, the rest of 18, the rest of 19, 20: the engine paths
+4, 16, 17, 5-9, the rest of 18, the rest of 19, 20, 21: the engine paths
 first, so that a fault there shows before the long routing phases, and
 the kernel checks early, where ``torch.profiler`` still records their
 device time):
@@ -224,6 +224,24 @@ device time):
    CPU from the same parameters and batches, within the rules of
    ``tests/test_torch_trainer.py``. On the card each of K3-K6's
    dispatchers raises on an input that requires grad.
+21. distributed — the distributed layer (``repro_torch.distributed``) and
+   the dry-run (``repro_torch.launch.dryrun``). On a one-rank NCCL
+   ``DeviceMesh`` ("data", "model") of shape (1, 1): phase 20's workload
+   (smollm-360m at full width) takes 3 plain steps and the same 3 steps
+   with its parameters, optimizer state and batches as DTensors under the
+   activation policy; loss, lr and grad norm must be the plain step's (the
+   same bits, else within 1e-6 relative, printed). The int8 compressed
+   all-reduce with error feedback runs 30 rounds over the group on the
+   model's f32 gradient tree (361,820,160 elements): the accumulated
+   relative error must stay below 0.02 and one round's below 0.2 (the
+   reference test's gates). The dry-run of ``perf.py``'s baseline cells A,
+   B and C on the (16, 16) mesh and B on the (2, 16, 16) mesh, on
+   ``meta`` through a process group that exchanges nothing, must give
+   status ok (each row's dominant term, roofline terms, collectives and
+   memory per device printed). Last, the dry-run of smollm at the card's
+   shape on a (1, 1) mesh: its argument bytes must equal the card's
+   parameters, optimizer state and batch exactly, and its FLOPs
+   ``FlopCounterMode``'s count of one real step on the card.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and the result line
@@ -3760,6 +3778,282 @@ def phase_train(main_tps) -> dict:
     return {"seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the distributed layer and the dry-run
+# ---------------------------------------------------------------------------
+
+#: steps of the DTensor train step on the one-rank (1, 1) mesh
+DIST_STEPS = 3
+#: rounds of the compressed all-reduce, and the reference test's gates on
+#: the accumulated and the one-round relative error
+DIST_ROUNDS = 30
+DIST_ACC_GATE = 0.02
+DIST_ONE_GATE = 0.2
+#: the tolerance of the DTensor step's metrics against the plain step's
+#: when they are not the same bits: inside the activation policy the
+#: attention takes the reference's sharded layout (KV heads repeated to
+#: the query heads, ``models/attention._repeat_kv``), so its products run
+#: as matmuls of another shape
+DIST_METRIC_RTOL = 1e-6
+#: the dry-run cells: ``perf.CELLS``' baselines on the single mesh, cell B
+#: also on the multi mesh; overrides on top of each (none on the card)
+DRYRUN_CELLS = (("A", "single"), ("B", "single"), ("C", "single"),
+                ("B", "multi"))
+DRYRUN_OVERRIDES: dict = {}
+#: one card's memory, the dry-run's per-device memory is printed against it
+CARD_BYTES = 80e9
+
+
+def _dist_group():
+    """The one-rank default process group of this device (NCCL on the
+    card, gloo on the CPU) and its (1, 1) ("data", "model") mesh."""
+    from repro_torch.launch.mesh import init_process_group, make_test_mesh
+    init_process_group(DEVICE)
+    return make_test_mesh((1, 1), ("data", "model"), device_type=DEVICE)
+
+
+def _scalar(t) -> float:
+    from torch.distributed.tensor import DTensor
+    return float(t.full_tensor() if isinstance(t, DTensor) else t)
+
+
+def dist_train(mesh):
+    """smollm-360m at full width, phase 20's workload: DIST_STEPS steps of
+    the plain train step, then the same steps with the parameters, the
+    optimizer state and the batch placed as DTensors on the (1, 1) mesh
+    under the activation policy. Fails unless loss, lr and grad norm are
+    the plain step's at every step (the same bits, else within
+    DIST_METRIC_RTOL, printed). Returns (cfg, params, batch 0)."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.dryrun import opt_state_pspecs
+    from repro_torch.models.api import build_model
+    from repro_torch.trainer import optimizer as opt
+    from repro_torch.trainer.train_loop import make_train_step
+    cfg = train_config()
+    params, _ = zoo_params(cfg)
+    step = make_train_step(build_model(cfg), TrainConfig(**TRAIN_TCFG))
+    batches = list(train_batches(cfg.vocab_size, 0, DIST_STEPS))
+    rows = {"plain": [], "dtensor": []}
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    p, o = params, opt.init(params)
+    for b in batches:
+        sync()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, b)
+        sync()
+        rows["plain"].append({"ms": (time.perf_counter() - t0) * 1e3,
+                              **{k: _scalar(v) for k, v in m.items()}})
+    del p, o
+    plain_peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" \
+        else None
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    p = sh.distribute_params(mesh, params)
+    o = sh.distribute(mesh, opt.init(params), opt_state_pspecs(params))
+    for b in batches:
+        bd = sh.distribute(mesh, b, sh.batch_pspecs(mesh, b))
+        sync()
+        t0 = time.perf_counter()
+        p, o, m = sh.policy_call(mesh, step, p, o, bd)
+        sync()
+        rows["dtensor"].append({"ms": (time.perf_counter() - t0) * 1e3,
+                                **{k: _scalar(v) for k, v in m.items()}})
+    del p, o
+    diff = {k: max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-30)
+                   for a, b in zip(rows["plain"], rows["dtensor"]))
+            for k in ("loss", "lr", "grad_norm")}
+    same = all(v == 0.0 for v in diff.values())
+    med = {k: sorted(r["ms"] for r in v)[len(v) // 2]
+           for k, v in rows.items()}
+    log({"dist_train": {
+        "model": cfg.name, "layers": cfg.num_layers, "mesh": [1, 1],
+        "steps": DIST_STEPS, "microbatches": TRAIN_TCFG["microbatches"],
+        "plain": rows["plain"], "dtensor": rows["dtensor"],
+        "step_ms_median": med["plain"],
+        "dtensor_step_ms_median": med["dtensor"],
+        "dtensor_overhead_ms": med["dtensor"] - med["plain"],
+        "same_bits": same, "max_rel_diff": diff,
+        "peak_memory_bytes": plain_peak,
+        "dtensor_peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                      if DEVICE == "cuda" else None)}})
+    if not same and max(diff.values()) > DIST_METRIC_RTOL:
+        raise AssertionError(f"DTensor step differs from the plain step: "
+                             f"{diff}")
+    return cfg, params, batches[0]
+
+
+def dist_compressed_allreduce(mesh, cfg, params, batch) -> dict:
+    """``make_compressed_grad_allreduce`` over the mesh's "data" group on
+    smollm-360m's f32 gradient tree of one batch, DIST_ROUNDS rounds with
+    error feedback. Fails unless the accumulated relative error is below
+    DIST_ACC_GATE and one round's below DIST_ONE_GATE (the reference
+    test's gates; errors over the whole tree)."""
+    import torch
+    from repro_torch.distributed.collectives import \
+        make_compressed_grad_allreduce
+    from repro_torch.models.api import build_model
+    from repro_torch.trainer.optimizer import tree_leaves, tree_map
+    from repro_torch.trainer.train_loop import value_and_grad
+    _, grads = value_and_grad(build_model(cfg).loss_fn, params, batch)
+    allreduce = make_compressed_grad_allreduce(mesh, "data")
+    g = tree_leaves(grads)
+    n = sum(t.numel() for t in g)
+    res = tree_map(torch.zeros_like, grads)
+    acc = [torch.zeros_like(t) for t in g]
+    one = None
+    ms = []
+    for i in range(DIST_ROUNDS):
+        sync()
+        t0 = time.perf_counter()
+        out, res = allreduce(grads, res)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for a, t in zip(acc, tree_leaves(out)):
+            a.add_(t)
+        if i == 0:
+            one = [t.clone() for t in tree_leaves(out)]
+
+    def rel(got, scale):
+        num = sum(float(torch.sum((x - scale * y) ** 2)) for x, y in
+                  zip(got, g))
+        den = sum(float(torch.sum((scale * y) ** 2)) for y in g)
+        return (num / den) ** 0.5
+    rel_acc, rel_one = rel(acc, DIST_ROUNDS), rel(one, 1)
+    row = {"elements": n, "bytes": sum(t.numel() * t.element_size()
+                                       for t in g),
+           "rounds": DIST_ROUNDS, "ms_per_round": sum(ms) / len(ms),
+           "ms_per_round_median": sorted(ms)[len(ms) // 2],
+           "rel_err_accumulated": rel_acc, "rel_err_one_round": rel_one}
+    log({"dist_compressed_allreduce": row})
+    if not (rel_acc < DIST_ACC_GATE and rel_one < DIST_ONE_GATE):
+        raise AssertionError(f"compressed all-reduce errors {row}")
+    return row
+
+
+def phase_dryrun() -> list:
+    """The baseline variant of ``perf.CELLS`` A, B and C on the single
+    (16, 16) mesh and B on the multi (2, 16, 16) mesh, on ``meta`` through
+    a 256 / 512-rank process group that exchanges nothing. Fails unless
+    every cell's status is ok."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.perf import CELLS
+    rows = []
+    for cell, mesh_name in DRYRUN_CELLS:
+        arch, shape, variants = CELLS[cell]
+        name, ov, serving = variants[0]
+        rec = run_cell(arch, shape, mesh_name, cost_pass=True,
+                       overrides=dict(ov, **DRYRUN_OVERRIDES) or None,
+                       serving_layout=serving, tag=f"{cell}/{name}",
+                       verbose=False)
+        if rec["status"] != "ok":
+            log(rec.get("traceback", ""))
+            raise AssertionError(f"dry-run {cell} {mesh_name}: "
+                                 f"{rec.get('error')}")
+        r, mem = rec["roofline"], rec["memory"]
+        row = {"cell": cell, "arch": arch, "shape": shape,
+               "mesh": mesh_name, "dominant": r["dominant"],
+               "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+               "collective_s": r["collective_s"],
+               "useful_ratio": r["useful_ratio"],
+               "collective_ops": r["collective_ops"],
+               "collectives": rec["collectives"], "cost": rec["cost"],
+               "memory": mem,
+               "memory_per_device_of_card": mem["total_per_device"]
+               / CARD_BYTES, "seconds": rec["total_s"]}
+        log({"dryrun": row})
+        rows.append(row)
+    return rows
+
+
+def dryrun_vs_card(cfg, params, batch) -> dict:
+    """The dry-run of smollm-360m at dist_train's shape (8 x 1024, train,
+    2 microbatches) on a (1, 1) mesh against one real step on the card.
+    Fails unless the dry-run's argument bytes equal those of the
+    parameters, the optimizer state and the batch on the card, and its
+    FLOPs equal ``FlopCounterMode``'s count of the real step. The batch is
+    the dry-run's contract (``Model.input_specs``): tokens and labels, no
+    mask."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.api import build_model
+    from repro_torch.trainer import optimizer as opt
+    from repro_torch.trainer.train_loop import make_train_step
+    shape = ShapeConfig("dist_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ov = {k: getattr(cfg, k) for k in ("attn_impl", "remat", "num_layers",
+                                       "d_model", "num_heads",
+                                       "num_kv_heads", "head_dim", "d_ff",
+                                       "vocab_size")}
+    ov["__microbatches__"] = TRAIN_TCFG["microbatches"]
+    rec = run_cell(cfg.name, shape, "card",
+                   mesh_shape=((1, 1), ("data", "model")), overrides=ov,
+                   cost_pass=True, verbose=False)
+    if rec["status"] != "ok":
+        log(rec.get("traceback", ""))
+        raise AssertionError(f"dry-run at the card's shape: {rec['error']}")
+    batch = {k: batch[k] for k in ("tokens", "labels")}
+    state = opt.init(params)
+    args = tree_bytes([params, state, batch])
+    step = make_train_step(build_model(cfg), TrainConfig(**TRAIN_TCFG))
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    with FlopCounterMode(display=False) as fc:
+        out = step(params, state, batch)
+    sync()
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+    del out
+    mem = rec["memory"]
+    row = {"model": cfg.name, "shape": [TRAIN_BATCH, TRAIN_SEQ],
+           "argument_size_in_bytes": mem["argument_size_in_bytes"],
+           "card_argument_bytes": args,
+           "flops": rec["cost"]["flops"],
+           "card_flops": fc.get_total_flops(),
+           "temp_size_in_bytes": mem["temp_size_in_bytes"],
+           "card_peak_less_arguments": (peak - base) if peak is not None
+           else None,
+           "bytes_accessed": rec["cost"]["bytes accessed"],
+           "seconds": rec["total_s"]}
+    log({"dryrun_vs_card": row})
+    if row["argument_size_in_bytes"] != args or \
+            row["flops"] != row["card_flops"]:
+        raise AssertionError(f"dry-run against the card: {row}")
+    return row
+
+
+def phase_distributed() -> dict:
+    """Phase 21: the DTensor train step on a one-rank mesh against the
+    plain step, the compressed all-reduce on the real gradient tree, the
+    dry-run of the perf cells, and the dry-run against the card."""
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    mesh = _dist_group()
+    try:
+        cfg, params, batch = dist_train(mesh)
+        dist_compressed_allreduce(mesh, cfg, params, batch)
+    finally:
+        dist.destroy_process_group()
+    t1 = time.perf_counter()
+    dry = phase_dryrun()
+    t2 = time.perf_counter()
+    vs = dryrun_vs_card(cfg, params, batch)
+    del params
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    secs = {"total": time.perf_counter() - t0, "card": t1 - t0,
+            "dryrun_host": t2 - t1, "dryrun_vs_card": time.perf_counter() - t2}
+    log({"distributed_s": secs})
+    return {"seconds": secs, "dryrun": dry, "dryrun_vs_card": vs}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3828,6 +4122,7 @@ def main() -> int:
                          "models": time.perf_counter() - t0}})
     phase_vlm_audio(tps)
     phase_train(tps)
+    phase_distributed()
     k4_row = k4[("bfloat16", "gpt2-large")]
     k5_row = k5["full-width"]
     k6_row = k6["full-width"]

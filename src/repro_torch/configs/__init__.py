@@ -11,14 +11,28 @@ attention block of head dim 80); qwen2-vl-7b (vlm: M-RoPE, a prefix of
 stub patch embeddings) through both serving paths for text and through the
 model API with an image prefix; and whisper-large-v3 (audio: encoder over
 stub frame embeddings, decoder with cross-attention) through its model API.
-``ALL_ARCHS`` is the reference's list, in the reference's order.
+``ALL_ARCHS`` is the reference's list, in the reference's order;
+``ASSIGNED_ARCHS`` (all but the paper's GPT-2) and ``get_shape`` are the
+reference's too (the dry-run's grid).
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import GTRACConfig, ModelConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401  (re-exported)
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES,
+    TRAIN_4K,
+    GTRACConfig,
+    MeshConfig,
+    ModelConfig,
+    ShapeConfig,
+    TrainConfig,
+    shape_applicable,
+)
 
 #: arch id -> module name
 _ARCH_MODULES: Dict[str, str] = {
@@ -46,6 +60,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "gpt2-large": "gpt2_large",
 }
 
+ASSIGNED_ARCHS: List[str] = [a for a in _ARCH_MODULES if a != "gpt2-large"]
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)
 
 
@@ -55,3 +70,9 @@ def get_config(name: str) -> ModelConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[name]}")
     return mod.CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
+    return SHAPES[name]

@@ -1,1 +1,2 @@
-"""Stage partitioning (port of ``repro.distributed``)."""
+"""The distributed layer (port of ``repro.distributed``): sharding rules
+and DTensor placements, collectives, the pipeline, elastic re-meshing."""

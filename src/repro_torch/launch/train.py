@@ -10,9 +10,12 @@ hand-written kernel: the kernels have no gradient, so the config keeps
 ``attn_impl="xla"``); checkpoints are written in the reference's format
 (``trainer/checkpoint.py``), so either package resumes from the other's.
 Weights are random, made from ``--seed`` with the family's ``init``.
-``--mesh single|multi`` raises ``NotImplementedError``: the reference
-shards over a TPU mesh there, and the port's distributed layer is ROADMAP
-queue 1, item 12.
+``--mesh single|multi`` builds the production mesh (``launch/mesh.py``,
+one rank per device of the default process group) and sets the
+activation policy, as the reference does; with fewer ranks than the mesh
+needs it raises the reference's device-count error, so on one card it
+always raises. The mesh is built before the parameters, so the error
+comes first.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+from repro_torch.distributed import sharding as sh
 from repro_torch.models.api import build_model
 from repro_torch.trainer import optimizer as opt
 from repro_torch.trainer.checkpoint import CheckpointManager
@@ -54,12 +58,13 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; sharded "
-            "training over a mesh is ROADMAP queue 1, item 12 "
-            "(distributed/)")
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh != "none":
+        from repro_torch.launch.mesh import make_production_mesh
+        mesh = make_production_mesh(multi_pod=(args.mesh == "multi"),
+                                    device_type=device.type)
+        sh.set_activation_policy(mesh)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -105,6 +110,7 @@ def main(argv=None):
             ckpt.save(step_i, {"params": params, "opt_state": opt_state},
                       async_write=True)
     ckpt.wait()
+    sh.set_activation_policy(None)
     print(f"done: {args.steps} steps, final loss "
           f"{float(metrics['loss']):.4f}")
     return params

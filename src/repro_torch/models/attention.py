@@ -21,14 +21,23 @@ The KV-cache decode step has two routes: ``decode_attend`` sends
 ``flash`` to kernel K4 (``kernels.ops.decode_attention``) and ``xla`` to
 ``attention_direct`` with ``kv_len``, the reference's own decode math.
 
-GQA is computed natively with grouped einsums — KV heads are never
-materially repeated.
+GQA is computed natively with grouped einsums — KV heads are not
+materially repeated on one device. Inside an activation policy
+(``distributed/sharding.py``) the plain paths take the reference's
+sharded layout instead: KV heads repeated to the query-head count
+(``_repeat_kv``) so that the head dimension can shard on ``model``, and
+under ``cfg.decode_seq_shard`` the sequence-parallel decode layout (the
+scores sharded along the cache's sequence). Each ``constrain`` sits where
+the reference's does and is the identity outside a policy.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (constrain, mesh_axis_size,
+                                               policy_mesh, reshape,
+                                               set_activation_policy)
 from repro_torch.kernels import ops
 from repro_torch.models.common import Params, dense_init, pdtype, remat
 
@@ -50,26 +59,117 @@ def qkv_proj(cfg: ModelConfig, p: Params, x):
     """x (B, S, d) -> q (B,S,Hq,D), k,v (B,S,Hkv,D)."""
     B, S, _ = x.shape
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = reshape(x @ p["wq"].to(dt), B, S, cfg.num_heads, cfg.head_dim)
+    k = reshape(x @ p["wk"].to(dt), B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = reshape(x @ p["wv"].to(dt), B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = constrain(q, "batch", "seq", "heads", None)
+    k = constrain(k, "batch", "seq", "heads", None)
+    v = constrain(v, "batch", "seq", "heads", None)
     return q, k, v
 
 
 def out_proj(cfg: ModelConfig, p: Params, o):
     B, S = o.shape[:2]
-    return o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"].to(o.dtype)
+    o = constrain(o, "batch", "seq", "heads", None)
+    out = o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"].to(o.dtype)
+    return constrain(out, "batch", "seq", "embed")
+
+
+def _repeat_kv(k, num_q_heads):
+    """(B,S,Hkv,D) -> (B,S,Hq,D) where that lets the heads shard, ``k``
+    itself elsewhere.
+
+    The reference repeats GQA KV heads to the full query-head count so
+    that the head dimension stays shardable under tensor parallelism
+    (scores with Hkv < TP degree would otherwise replicate). The grouped
+    einsum needs no copy, so the port repeats only inside an activation
+    policy whose ``model`` axis divides the query heads and not the KV
+    heads: there the repeat changes the layout. Elsewhere (one device, a
+    model axis of 1, heads that shard or replicate either way) the scores
+    are the same products without it, and their rounding stays that of
+    the one-device path.
+    """
+    mesh = policy_mesh()
+    if mesh is None:
+        return k
+    B, S, Hkv, D = k.shape
+    G = num_q_heads // Hkv
+    m = mesh_axis_size(mesh, "model")
+    if G == 1 or m == 1 or num_q_heads % m or Hkv % m == 0:
+        return k
+    k = reshape(k[:, :, :, None, :].expand(B, S, Hkv, G, D),
+                B, S, Hkv * G, D)                  # jnp.repeat(k, G, axis=2)
+    return constrain(k, "batch", "seq", "heads", None)
+
+
+def _per_shard(fn, q, k, v, kv_len=None, q_offset=0):
+    """Inside an activation policy, on DTensors: ``fn`` on each rank's own
+    shards, as tensor-parallel attention runs (batch rows and heads are
+    independent), the result a DTensor of q's layout; None elsewhere.
+
+    q, k and v are first placed alike: batch (dimension 0) and heads
+    (dimension 2) keep q's sharding, the sequence and head dimensions are
+    gathered (a sequence-sharded cache is all-gathered, as GSPMD does for
+    the reference's non-sequence-parallel decode). ``kv_len`` and
+    ``q_offset`` of one entry per batch row are cut to this rank's rows.
+    ``fn`` runs outside the policy: the one-device code on local tensors.
+    DTensor would otherwise run the products as one batched matmul over
+    batch x heads, a flatten of two sharded dimensions that some torch
+    releases refuse.
+    """
+    mesh = policy_mesh()
+    if mesh is None:
+        return None
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    if not isinstance(q, DTensor):
+        return None
+    pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else
+               Replicate() for p in q.placements)
+    q, k, v = (t.redistribute(mesh, pl) if t.placements != pl else t
+               for t in (q, k, v))
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate() for p in pl)
+
+    def local_rows(t):
+        if isinstance(t, torch.Tensor) and t.dim() >= 1 and \
+                t.shape[0] == q.shape[0] > 1:
+            return distribute_tensor(t, mesh, rows,
+                                     src_data_rank=None).to_local()
+        return t
+    set_activation_policy(None)
+    try:
+        out = fn(q.to_local(), k.to_local(), v.to_local(),
+                 local_rows(kv_len), local_rows(q_offset))
+    finally:
+        set_activation_policy(mesh)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
 def attention_direct(q, k, v, *, causal: bool, q_offset=0,
-                     kv_len=None, window: int = 0):
+                     kv_len=None, window: int = 0, seq_shard: bool = False):
     """q (B,Sq,Hq,D); k,v (B,Sk,Hkv,D) -> (B,Sq,Hq,D).
 
     ``q_offset`` (int or (B,)) is the position of the first query row.
     ``kv_len`` (scalar or (B,)) masks out key positions >= kv_len.
     ``window`` > 0 restricts attention to the trailing window.
+    ``seq_shard``: the reference's sequence-parallel decode layout (q
+    replicated over ``model``, the cache and the scores sharded along the
+    sequence, grouped KV heads never repeated); the same arithmetic, and
+    nothing changes outside an activation policy.
     """
     B, Sq, Hq, D = q.shape
+    if seq_shard:
+        q = constrain(q, "batch", None, None, None)
+        k = constrain(k, "batch", "seq_model", None, None)
+        v = constrain(v, "batch", "seq_model", None, None)
+    else:
+        k = _repeat_kv(k, Hq)
+        v = _repeat_kv(v, Hq)
+        out = _per_shard(lambda q, k, v, kv_len, q_offset: attention_direct(
+            q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+            window=window), q, k, v, kv_len, q_offset)
+        if out is not None:
+            return out
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     dev = q.device
@@ -78,6 +178,8 @@ def attention_direct(q, k, v, *, causal: bool, q_offset=0,
     qg = q.reshape(B, Sq, Hkv, G, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                           k.float()) * scale
+    if seq_shard:
+        scores = constrain(scores, "batch", None, None, None, "seq_model")
     q_pos = (torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
              + torch.arange(Sq, device=dev))[:, :, None]   # (B or 1, Sq, 1)
     k_pos = torch.arange(Sk, device=dev)
@@ -114,9 +216,17 @@ def attention_chunked(q, k, v, *, causal: bool, chunk: int = 1024,
     the reference's scan (unrolled for the dry-run's cost analysis); an
     eager loop has no such choice, so it is accepted and ignored."""
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk = k.shape[1]
     if Sk % chunk != 0:
         return attention_direct(q, k, v, causal=causal, window=window)
+    k = _repeat_kv(k, Hq)
+    v = _repeat_kv(v, Hq)
+    out = _per_shard(lambda q, k, v, _kv_len, _q_offset: attention_chunked(
+        q, k, v, causal=causal, chunk=chunk, window=window,
+        chunk_remat=chunk_remat), q, k, v)
+    if out is not None:
+        return out
+    Hkv = k.shape[2]
     G = Hq // Hkv
     dev = q.device
     scale = torch.tensor(float(D), dtype=torch.float32).rsqrt().item()
@@ -198,9 +308,10 @@ def decode_attend(cfg: ModelConfig, q, cache_k, cache_v, kv_len,
     holds here, which is K4's contract); otherwise the reference's
     ``attention_direct`` with ``kv_len``. A sliding window on the flash
     path raises on the card, as ``attend`` does for K3, and keeps the
-    reference's math on the CPU. ``cfg.decode_seq_shard`` is a GSPMD layout
-    hint of the reference (sequence-sharded scores across a TPU mesh); on
-    one card it changes nothing and is ignored."""
+    reference's math on the CPU. ``cfg.decode_seq_shard`` selects the
+    reference's sequence-parallel layout on the plain path
+    (``attention_direct(seq_shard=...)``), which only an activation policy
+    makes differ from the one-device layout."""
     if cfg.attn_impl == "flash" and not window:
         o = ops.decode_attention(q[:, 0].contiguous(), cache_k, cache_v,
                                  kv_len)
@@ -211,7 +322,8 @@ def decode_attend(cfg: ModelConfig, q, cache_k, cache_v, kv_len,
                          "attn_impl='xla'")
     return attention_direct(q, cache_k, cache_v, causal=False,
                             kv_len=kv_len, window=window,
-                            q_offset=(kv_len - 1) if window else 0)
+                            q_offset=(kv_len - 1) if window else 0,
+                            seq_shard=cfg.decode_seq_shard)
 
 
 def cache_update(cache_k, cache_v, k_new, v_new, index: int,

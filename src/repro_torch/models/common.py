@@ -16,6 +16,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (constrain, reduce_partial,
+                                               take_rows)
 
 Params = Dict[str, Any]
 
@@ -111,14 +113,15 @@ def init_embeddings(cfg: ModelConfig, generator: torch.Generator,
 
 def embed_tokens(cfg: ModelConfig, p: Params, tokens, positions=None):
     """tokens (B, S) int -> (B, S, d) activations (learned positions added
-    when the config has them)."""
-    x = p["tok"][tokens].to(adtype(cfg))
+    when the config has them; rows looked up by ``sharding.take_rows``,
+    plain indexing outside an activation policy)."""
+    x = take_rows(p["tok"], tokens).to(adtype(cfg))
     if cfg.pos_type == "learned":
         if positions is None:
             positions = torch.arange(tokens.shape[-1],
                                      device=tokens.device)[None, :]
-        x = x + p["pos"][positions].to(adtype(cfg))
-    return x
+        x = x + take_rows(p["pos"], positions).to(adtype(cfg))
+    return constrain(x, "batch", "seq", "embed")
 
 
 def logits_head(cfg: ModelConfig, p: Params, x):
@@ -126,6 +129,8 @@ def logits_head(cfg: ModelConfig, p: Params, x):
     the token embedding matrix)."""
     w = p["tok"] if cfg.tie_embeddings else p["head"]
     out = torch.matmul(x, w.to(x.dtype).t())
+    if out.dim() == 3:
+        out = constrain(out, "batch", "seq", "vocab")
     return out.to(_DTYPES[cfg.logits_dtype])
 
 
@@ -149,7 +154,8 @@ def _nll(logits, labels):
     """Per-token negative log-likelihood in f32: logsumexp - gold logit."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    gold = reduce_partial(torch.gather(logits, -1,
+                                       labels[..., None].long()))[..., 0]
     return lse - gold
 
 

@@ -17,8 +17,10 @@ plain recurrence ``ssd_step``; the reference has no kernel for it.
 
 The causal depthwise convolution is W shifted multiply-adds, as the
 reference writes it: ``F.conv1d`` would go through cuDNN, which runs f32
-convolutions in TF32 by default. The reference's sharding hints
-(``constrain``) have no counterpart on one card.
+convolutions in TF32 by default. The reference's activation constraints
+(``constrain``) sit at the same places; they redistribute DTensors inside
+an activation policy (``distributed/sharding.py``) and are the identity
+outside one.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_chunk import ssd_chunked_plain as ssd_chunked, ssd_step
 from repro_torch.models.common import Params, dense_init, pdtype
@@ -111,7 +114,7 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x, state=None):
     Bz, S, d = x.shape
     d_in, H, P, N = dims(cfg)
     dt_a = x.dtype
-    proj = x @ p["in_proj"].to(dt_a)
+    proj = constrain(x @ p["in_proj"].to(dt_a), "batch", "seq", "ff")
     z, xBC, dt = _split_proj(cfg, proj)
     w, b = p["conv_w"].to(dt_a), p["conv_b"].to(dt_a)
     if state is not None:
@@ -125,6 +128,7 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x, state=None):
                          device=x.device)
     xBC_conv = F.silu(xBC_conv)
     xs = xBC_conv[..., :d_in].reshape(Bz, S, H, P).float()
+    xs = constrain(xs, "batch", "seq", "heads", None)
     Bm = xBC_conv[..., d_in:d_in + N].float()
     Cm = xBC_conv[..., d_in + N:].float()
     dt, la = _dt_decay(p, dt)                                   # (B,S,H)
@@ -134,8 +138,10 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x, state=None):
     else:
         y, h = ssd_chunked(xs, dt, la, Bm, Cm, h0)
     y = y + xs * p["D"][None, None, :, None]
-    y = _gated_rmsnorm(y.reshape(Bz, S, d_in), z.float(), p["gn_w"])
-    out = y.to(dt_a) @ p["out_proj"].to(dt_a)
+    y = constrain(y.reshape(Bz, S, d_in), "batch", "seq", "ff")
+    y = _gated_rmsnorm(y, z.float(), p["gn_w"])
+    out = constrain(y.to(dt_a) @ p["out_proj"].to(dt_a),
+                    "batch", "seq", "embed")
     W1 = cfg.ssm_conv_width - 1
     if S >= W1:
         new_conv = xBC[:, -W1:, :]

@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import Params, dense_init, pdtype
 
 
@@ -27,9 +28,9 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, device,
 
 def apply_mlp(cfg: ModelConfig, p: Params, x):
     dt = x.dtype
-    h = x @ p["wi"].to(dt)
+    h = constrain(x @ p["wi"].to(dt), "batch", "seq", "ff")
     if cfg.act == "silu":
-        h = F.silu(h) * (x @ p["wg"].to(dt))
+        h = F.silu(h) * constrain(x @ p["wg"].to(dt), "batch", "seq", "ff")
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["wo"].to(dt)
+    return constrain(h @ p["wo"].to(dt), "batch", "seq", "embed")

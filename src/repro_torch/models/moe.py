@@ -36,9 +36,14 @@ token gate). So nothing here accumulates through a scatter:
 
 The expert products are plain batched matmuls (``torch.bmm``), as the
 reference leaves its ``einsum``s to XLA; no kernel of the reference's
-``kernels/`` is involved. The reference's ``constrain`` calls are GSPMD
-layout hints (tokens on the data axis, expert stacks on the model axis);
-on one card they change nothing and are dropped.
+``kernels/`` is involved. The reference's activation constraints
+(``constrain``: tokens on the data axis, expert stacks on the model axis)
+sit at the same places: the expert buffer, the expert products, the
+gathered-back rows and the output. The reference also constrains the
+(T·k, d) rows it scatters into the buffer; here the gather fills the
+buffer directly and no such tensor exists, so the buffer's constraint is
+the one. Each redistributes DTensors inside an activation policy
+(``distributed/sharding.py``) and is the identity outside one.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import Params, dense_init, pdtype
 
 
@@ -120,13 +126,15 @@ def apply_moe(cfg: ModelConfig, p: Params, x, return_aux: bool = False):
     filled = r[None, :] < counts[:, None]                # (E, C)
     src = torch.clamp(starts[:, None] + r[None, :], max=T * k - 1)
     buf = torch.where(filled[..., None], xf[sorted_token[src]], 0.0)
+    buf = constrain(buf, "expert", None, None)
 
-    h = torch.bmm(buf, p["wi"].to(dt))
+    h = constrain(torch.bmm(buf, p["wi"].to(dt)), "expert", None, None)
     if cfg.act == "silu":
         h = F.silu(h) * torch.bmm(buf, p["wg"].to(dt))
     else:
         h = F.gelu(h, approximate="tanh")
-    out = torch.bmm(h, p["wo"].to(dt))                   # (E, C, d)
+    out = constrain(torch.bmm(h, p["wo"].to(dt)),        # (E, C, d)
+                    "expert", None, None)
 
     # combine: assignment (t, j) sits at sorted position pos, rank
     # pos - starts[e] in its expert's queue (a permutation: no collisions)
@@ -136,11 +144,12 @@ def apply_moe(cfg: ModelConfig, p: Params, x, return_aux: bool = False):
     keep = rank < C
     rank_c = torch.where(keep, rank, 0)
     w = (flat_gate * keep).to(dt)[:, None]
-    rows = (out[flat_expert, rank_c] * w).reshape(T, k, d)
+    rows = constrain(out[flat_expert, rank_c], "batch", None)
+    rows = (rows * w).reshape(T, k, d)
     y = rows[:, 0]
     for j in range(1, k):
         y = y + rows[:, j]
-    y = y.reshape(B, S, d)
+    y = constrain(y.reshape(B, S, d), "batch", "seq", "embed")
     if return_aux:
         return y, load_balance_loss(cfg, probs, idx)
     return y

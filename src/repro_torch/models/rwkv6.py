@@ -29,8 +29,9 @@ the step's own temporaries). The training loss ``loss_fn`` runs the layers
 from the zero state and keeps no state (``train_hidden``: an in-place
 write would break autograd), through the plain chunked form under
 ``attn_impl="xla"``; kernel K5 has no gradient, as the reference's Pallas
-kernel has none. The reference's sharding hints (``constrain``) have no
-counterpart here.
+kernel has none. The reference's activation constraints (``constrain``)
+sit at the same places; they redistribute DTensors inside an activation
+policy (``distributed/sharding.py``) and are the identity outside one.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.kernels.rwkv6_chunk import (
     wkv6_chunked_plain as wkv6_chunked, wkv6_step)
@@ -137,11 +139,13 @@ def _tm_projections(cfg: ModelConfig, p: Params, x, x_last):
     xs = _token_shift(x, x_last)
     mu = p["mu"].to(dt)
     xr, xk, xv, xg, xw = (x + (xs - x) * mu[i] for i in range(5))
-    r = (xr @ p["wr"].to(dt)).reshape(B, S, H, K)
-    k = (xk @ p["wk"].to(dt)).reshape(B, S, H, K)
-    v = (xv @ p["wv"].to(dt)).reshape(B, S, H, K)
-    g = xg @ p["wg"].to(dt)
-    lw = _decay(p, xw).reshape(B, S, H, K)
+    def c(a):
+        return constrain(a, "batch", "seq", "heads", None)
+    r = c((xr @ p["wr"].to(dt)).reshape(B, S, H, K))
+    k = c((xk @ p["wk"].to(dt)).reshape(B, S, H, K))
+    v = c((xv @ p["wv"].to(dt)).reshape(B, S, H, K))
+    g = constrain(xg @ p["wg"].to(dt), "batch", "seq", "ff")
+    lw = c(_decay(p, xw).reshape(B, S, H, K))
     return r, k, v, g, lw
 
 
@@ -181,9 +185,10 @@ def channel_mix(cfg: ModelConfig, p: Params, x, x_last):
     mu = p["cm_mu"].to(dt)
     xk = x + (xs - x) * mu[0]
     xr = x + (xs - x) * mu[1]
-    kk = torch.square(torch.relu(xk @ p["cm_k"].to(dt)))
+    kk = torch.square(torch.relu(
+        constrain(xk @ p["cm_k"].to(dt), "batch", "seq", "ff")))
     out = torch.sigmoid(xr @ p["cm_r"].to(dt)) * (kk @ p["cm_v"].to(dt))
-    return out, x[:, -1, :]
+    return constrain(out, "batch", "seq", "embed"), x[:, -1, :]
 
 
 def block(cfg: ModelConfig, p: Params, x, state, *, single_step: bool):

@@ -344,10 +344,13 @@ def prefill(cfg: ModelConfig, params: Params, tokens, positions=None,
                                prefix_embeds=prefix_embeds, collect_kv=True)
     L, B, S = k.shape[:3]
     capacity = max(capacity or S, S)
-    cache = make_cache(cfg, B, capacity, dtype=k.dtype, device=k.device)
-    cache["k"][:, :, :S] = k
-    cache["v"][:, :, :S] = v
-    cache["index"] = S
+    if capacity == S:   # the stacked K/V are the cache: no copy
+        cache = {"k": k, "v": v, "index": S}
+    else:
+        cache = make_cache(cfg, B, capacity, dtype=k.dtype, device=k.device)
+        cache["k"][:, :, :S] = k
+        cache["v"][:, :, :S] = v
+        cache["index"] = S
     logits = logits_head(cfg, params["embed"], x[:, -1:, :])
     return logits, cache
 

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import reshape
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer
 from repro_torch.models.common import (Params, adtype, apply_norm,
@@ -94,17 +95,17 @@ params_from_jax = transformer.params_from_jax
 
 def _cross_q(cfg: ModelConfig, p: Params, h):
     B, S = h.shape[:2]
-    return (h @ p["wq"].to(h.dtype)).reshape(B, S, cfg.num_heads,
-                                             cfg.head_dim)
+    return reshape(h @ p["wq"].to(h.dtype), B, S, cfg.num_heads,
+                   cfg.head_dim)
 
 
 def _cross_kv(cfg: ModelConfig, p: Params, enc_out):
     B, S = enc_out.shape[:2]
     dt = enc_out.dtype
-    ck = (enc_out @ p["wk"].to(dt)).reshape(B, S, cfg.num_kv_heads,
-                                            cfg.head_dim)
-    cv = (enc_out @ p["wv"].to(dt)).reshape(B, S, cfg.num_kv_heads,
-                                            cfg.head_dim)
+    ck = reshape(enc_out @ p["wk"].to(dt), B, S, cfg.num_kv_heads,
+                 cfg.head_dim)
+    cv = reshape(enc_out @ p["wv"].to(dt), B, S, cfg.num_kv_heads,
+                 cfg.head_dim)
     return ck, cv
 
 

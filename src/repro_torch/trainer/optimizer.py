@@ -61,9 +61,9 @@ def reference_rank(tree, stacked: int = 0):
 
 
 def init(params) -> OptState:
-    def zeros(p):
-        return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                              device=x.device), p)
+    def zeros(p):   # zeros_like: a DTensor leaf keeps its placements
+        return tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                        p)
     leaf = tree_leaves(params)[0]
     return {"mu": zeros(params), "nu": zeros(params),
             "step": torch.zeros((), dtype=torch.int32, device=leaf.device)}

@@ -9,9 +9,12 @@ their count, the learning rate ``lr_fn(step + 1)`` and the functional
 AdamW ``update``. The step runs eagerly. It goes through no hand-written
 kernel: the kernels have no gradient (``kernels/ops.py`` refuses a tensor
 that requires one), as the reference's Pallas kernels have none, so
-training runs ``attn_impl="xla"``. The reference's int8-compressed
-gradient all-reduce belongs to its multi-device mesh, which the port has
-not taken yet.
+training runs ``attn_impl="xla"``. The same step runs sharded when its
+inputs are DTensors (``distributed/sharding.py``: ``distribute_params``
+and ``policy_call``). The reference's int8-compressed gradient all-reduce
+(``distributed/collectives.make_compressed_grad_allreduce``) is read by
+neither train loop: ``TrainConfig.grad_compression`` is not wired in,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -74,9 +77,8 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             mbs = _split_microbatches(batch, n_micro)
             dev = tree_leaves(params)[0].device
             loss = torch.zeros((), dtype=torch.float32, device=dev)
-            grads = tree_map(lambda p: torch.zeros(p.shape,
-                                                   dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             for i in range(n_micro):
                 mb = {k: v[i] for k, v in mbs.items()}
                 l, g = value_and_grad(model.loss_fn, params, mb)

@@ -298,7 +298,9 @@ def test_launcher_prints_the_reference_lines(tmp_path):
     the reference launcher's lines (the same steps logged, the same
     formats, the same lr schedule; losses within 0.2 of each other, near
     ln(256): the random weights differ), writes its checkpoint, resumes
-    from it, and refuses ``--mesh``."""
+    from it, and raises the reference's device-count error for
+    ``--mesh`` (one process is one device: the production meshes need 256
+    and 512)."""
     ref = _launch("repro.launch.train", tmp_path / "ref", "--steps", "4")
     got = _launch("repro_torch.launch.train", tmp_path / "port",
                   "--steps", "4")
@@ -316,6 +318,9 @@ def test_launcher_prints_the_reference_lines(tmp_path):
     assert resumed[0] == "resumed from step 4"
     assert _STEP.match(resumed[1]).group(1) == "6"
     from repro_torch.launch.train import main
-    for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+    for mesh, want in (("single", r"mesh \(16, 16\) needs 256 devices, "
+                                  r"have 1"),
+                       ("multi", r"mesh \(2, 16, 16\) needs 512 devices, "
+                                 r"have 1")):
+        with pytest.raises(RuntimeError, match=want):
             main(["--mesh", mesh, "--device", "cpu"])

@@ -310,3 +310,45 @@ def test_phase20_rehearsal(monkeypatch, capsys, tmp_path):
     assert tuple(parity) == cs.TRAIN_FAMILIES
     assert all(len(r["free"]) == len(r["carried"]) == cs.TRAIN_PARITY_STEPS
                for r in parity.values())
+
+
+def test_phase21_rehearsal(monkeypatch, capsys):
+    """Phase 21 (``distributed``) at a tiny width on the CPU, with a
+    one-rank gloo group where the card has a one-rank NCCL group: the
+    DTensor train step on the (1, 1) mesh gives the plain step's metrics;
+    the compressed all-reduce holds the reference test's gates on the
+    gradient tree; the dry-run's four cells (``perf.CELLS`` A, B, C on the
+    single mesh and B on the multi mesh, on their production meshes at a
+    tiny width) run; the dry-run at the card's shape counts the plain
+    step's argument bytes and ``FlopCounterMode``'s FLOPs exactly. No
+    process group is left."""
+    import torch.distributed as dist
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "TRAIN_SEQ", 64)
+    orig = cs.train_config
+    tiny = dict(TINY, num_layers=2)
+    monkeypatch.setattr(cs, "train_config", lambda layers=None:
+                        dataclasses.replace(orig(layers), **tiny))
+    monkeypatch.setattr(cs, "DRYRUN_OVERRIDES", tiny)
+    cs.phase_distributed()
+    assert not dist.is_initialized()
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        if line.startswith("{"):
+            obj = json.loads(line)
+            key = next(iter(obj))
+            rows.setdefault(key, []).append(obj[key])
+    train = rows["dist_train"][0]
+    assert len(train["plain"]) == len(train["dtensor"]) == cs.DIST_STEPS
+    assert max(train["max_rel_diff"].values()) <= cs.DIST_METRIC_RTOL
+    comp = rows["dist_compressed_allreduce"][0]
+    assert comp["rounds"] == 30
+    assert comp["rel_err_accumulated"] < 0.02
+    assert comp["rel_err_one_round"] < 0.2
+    dry = rows["dryrun"]
+    assert [(r["cell"], r["mesh"]) for r in dry] == list(cs.DRYRUN_CELLS)
+    assert all(r["cost"]["flops"] > 0 for r in dry)
+    vs = rows["dryrun_vs_card"][0]
+    assert vs["argument_size_in_bytes"] == vs["card_argument_bytes"]
+    assert vs["flops"] == vs["card_flops"] > 0
