@@ -37,6 +37,9 @@
 #                       checked-in allow-list (repolint.json). Stdlib
 #                       only — no installs needed; findings fail with
 #                       file:line output
+#   make analyze-torch  the same linter over the PyTorch port:
+#                       python -m repro_torch.analysis src/repro_torch
+#                       under repolint_torch.json
 #   make lint           compile-check + `make analyze` + ruff (pyflakes
 #                       fallback). The generic-linter half is a HARD
 #                       dependency: fails if neither linter is installed —
@@ -51,7 +54,7 @@ PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH),)
 export PYTHONPATH
 
 .PHONY: test bench-routing bench-serving bench-sharding bench-sync \
-	bench-control-plane bench-smoke trace-demo analyze lint
+	bench-control-plane bench-smoke trace-demo analyze analyze-torch lint
 
 test:
 	$(PY) -m pytest -x -q
@@ -84,6 +87,9 @@ bench-smoke:
 
 analyze:
 	$(PY) -m repro.analysis src/repro
+
+analyze-torch:
+	$(PY) -m repro_torch.analysis src/repro_torch
 
 lint: analyze
 	$(PY) -m compileall -q src benchmarks tests examples

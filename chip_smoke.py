@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails (they
 run in the order 1, 15, 14, 10, 2, 18's and 19's kernel checks, 11-13, 3,
-4, 16, 17, 5-9, the rest of 18, the rest of 19, 20, 21: the engine paths
+4, 16, 17, 5-9, the rest of 18, the rest of 19, 20, 21, 22: the engine paths
 first, so that a fault there shows before the long routing phases, and
 the kernel checks early, where ``torch.profiler`` still records their
 device time):
@@ -241,7 +241,17 @@ device time):
    memory per device printed). Last, the dry-run of smollm at the card's
    shape on a (1, 1) mesh: its argument bytes must equal the card's
    parameters, optimizer state and batch exactly, and its FLOPs
-   ``FlopCounterMode``'s count of one real step on the card.
+   ``FlopCounterMode``'s count of one real step on the card. One
+   full-width single-mesh cell of each family whose sharded step the
+   dry-run once failed (qwen3-moe-30b-a3b ``decode_32k``, rwkv6-1.6b
+   ``long_500k``, zamba2-2.7b ``prefill_32k``, whisper-large-v3
+   ``train_4k``) runs in a process of its own, started right after the
+   build (host work on ``meta``, CUDA hidden from it), and must give
+   status ok (each row's dominant term printed).
+22. repolint — the port's AST linter (``python -m repro_torch.analysis``)
+   over ``src/repro_torch`` under ``repolint_torch.json``: 0 findings, 26
+   allowed (the reference's audited exceptions), no unused entry; files,
+   findings and allowed printed.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and the result line
@@ -250,11 +260,14 @@ script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3800,8 +3813,24 @@ DIST_METRIC_RTOL = 1e-6
 DRYRUN_CELLS = (("A", "single"), ("B", "single"), ("C", "single"),
                 ("B", "multi"))
 DRYRUN_OVERRIDES: dict = {}
+#: one full-width single-mesh cell of each family whose sharded step the
+#: dry-run once failed (MoE, ssm, hybrid, audio): run from the start of the
+#: script in a process of their own (``--dryrun-cells``: host work on
+#: ``meta``, beside the card's phases), gated in phase 21
+DRYRUN_FAMILY_CELLS = (("qwen3-moe-30b-a3b", "decode_32k"),
+                       ("rwkv6-1.6b", "long_500k"),
+                       ("zamba2-2.7b", "prefill_32k"),
+                       ("whisper-large-v3", "train_4k"))
+#: a cut of those cells for a rehearsal: "overrides" {arch: config
+#: overrides} and "shape" (seq_len, global_batch); none on the card
+DRYRUN_FAMILY_SCALE: dict = {}
+#: how long phase 21 waits for those cells to finish, seconds
+DRYRUN_FAMILY_TIMEOUT = 600
 #: one card's memory, the dry-run's per-device memory is printed against it
 CARD_BYTES = 80e9
+#: the port linter's allowed findings under ``repolint_torch.json`` (the
+#: reference's 26 audited exceptions, moved to ``src/repro_torch``)
+REPOLINT_ALLOWED = 26
 
 
 def _dist_group():
@@ -3968,6 +3997,132 @@ def phase_dryrun() -> list:
     return rows
 
 
+def _stop(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def start_family_dryrun() -> dict:
+    """Starts ``DRYRUN_FAMILY_CELLS`` in a process of this script
+    (``--dryrun-cells``), with CUDA hidden from it, and returns its handle
+    for ``phase_family_dryrun``. The process is killed if the script ends
+    first."""
+    arg = json.dumps({"cells": DRYRUN_FAMILY_CELLS,
+                      "scale": DRYRUN_FAMILY_SCALE})
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    err = tempfile.TemporaryFile()
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--dryrun-cells", arg], cwd=str(ROOT), env=env,
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    atexit.register(_stop, proc)
+    return {"proc": proc, "err": err, "t0": time.perf_counter()}
+
+
+def dryrun_cells(arg: str) -> int:
+    """The body of ``--dryrun-cells``: each cell of the JSON argument on
+    the single mesh, one JSON record per line on stdout."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch.configs import get_shape
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import run_cell
+    torch.set_num_threads(1)
+    spec = json.loads(arg)
+    scale = spec["scale"]
+    for arch, shape_name in spec["cells"]:
+        shape = get_shape(shape_name)
+        if scale.get("shape"):
+            shape = ShapeConfig(shape.name, *scale["shape"], shape.kind)
+        rec = run_cell(arch, shape, "single", cost_pass=True,
+                       overrides=scale.get("overrides", {}).get(arch),
+                       verbose=False)
+        print(json.dumps(rec), flush=True)
+    return 0
+
+
+def phase_family_dryrun(family=None) -> list:
+    """Collects ``DRYRUN_FAMILY_CELLS`` (``family``, the handle of the
+    process started after the build, else one started now): fails unless
+    each cell's status is ok; prints each row's dominant term, roofline
+    terms, collectives, memory per device and host seconds, and how long
+    the phase waited."""
+    family = family or start_family_dryrun()
+    t0 = time.perf_counter()
+    proc, err = family["proc"], family["err"]
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_FAMILY_TIMEOUT)
+    finally:
+        _stop(proc)
+    err.seek(0)
+    tail = err.read().decode(errors="replace")[-4000:]
+    err.close()
+    if proc.returncode != 0:
+        log(tail)
+        raise AssertionError(f"dry-run cells: exit {proc.returncode}")
+    recs = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    if [(r["arch"], r["shape"]) for r in recs] != \
+            [tuple(c) for c in DRYRUN_FAMILY_CELLS]:
+        log(tail)
+        raise AssertionError("dry-run cells: "
+                             f"{[(r['arch'], r['shape']) for r in recs]}")
+    rows = []
+    for rec in recs:
+        if rec["status"] != "ok":
+            log(rec.get("traceback", ""))
+            raise AssertionError(f"dry-run {rec['arch']} {rec['shape']}: "
+                                 f"{rec.get('error')}")
+        r, mem = rec["roofline"], rec["memory"]
+        row = {"arch": rec["arch"], "shape": rec["shape"],
+               "mesh": rec["mesh"], "dominant": r["dominant"],
+               "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+               "collective_s": r["collective_s"],
+               "useful_ratio": r["useful_ratio"],
+               "collective_ops": r["collective_ops"],
+               "collectives": rec["collectives"], "cost": rec["cost"],
+               "memory": mem,
+               "memory_per_device_of_card": mem["total_per_device"]
+               / CARD_BYTES, "seconds": rec["total_s"]}
+        log({"dryrun_family": row})
+        rows.append(row)
+    log({"dryrun_family_s": {
+        "process": time.perf_counter() - family["t0"],
+        "waited": time.perf_counter() - t0,
+        "cells": sum(r["seconds"] for r in rows)}})
+    return rows
+
+
+def phase_repolint() -> dict:
+    """Phase 22: the port's linter (``repro_torch.analysis``) over
+    ``src/repro_torch`` under ``repolint_torch.json``, from the root of
+    the checkout. Fails unless it reports no finding, every allow-list
+    entry is used, and ``REPOLINT_ALLOWED`` findings are allowed."""
+    from repro_torch.analysis import (ALL_RULES, analyze_paths,
+                                      build_rules, find_config, load_config)
+    t0 = time.perf_counter()
+    path = find_config(str(ROOT))
+    cfg = load_config(path, [r.rule_id for r in ALL_RULES])
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        run = analyze_paths(["src/repro_torch"], build_rules(cfg.options),
+                            cfg)
+    finally:
+        os.chdir(cwd)
+    unused = [f"{e.rule} {e.path} {e.symbol}" for e in cfg.allow
+              if e.hits == 0]
+    row = {"config": os.path.relpath(path, ROOT), "files": run.files,
+           "findings": len(run.findings), "allowed": len(run.allowed),
+           "unused_allow": unused, "seconds": time.perf_counter() - t0}
+    log({"repolint": row})
+    if run.findings or unused or len(run.allowed) != REPOLINT_ALLOWED:
+        for f in run.findings:
+            log(f.render())
+        raise AssertionError(f"repolint: {row}")
+    return row
+
+
 def dryrun_vs_card(cfg, params, batch) -> dict:
     """The dry-run of smollm-360m at dist_train's shape (8 x 1024, train,
     2 microbatches) on a (1, 1) mesh against one real step on the card.
@@ -4027,10 +4182,12 @@ def dryrun_vs_card(cfg, params, batch) -> dict:
     return row
 
 
-def phase_distributed() -> dict:
+def phase_distributed(family=None) -> dict:
     """Phase 21: the DTensor train step on a one-rank mesh against the
     plain step, the compressed all-reduce on the real gradient tree, the
-    dry-run of the perf cells, and the dry-run against the card."""
+    dry-run of the perf cells and of the repaired families' cells
+    (``family``: ``start_family_dryrun``'s handle, or None to start them
+    here), and the dry-run against the card."""
     import torch
     import torch.distributed as dist
     t0 = time.perf_counter()
@@ -4042,6 +4199,7 @@ def phase_distributed() -> dict:
         dist.destroy_process_group()
     t1 = time.perf_counter()
     dry = phase_dryrun()
+    family = phase_family_dryrun(family)
     t2 = time.perf_counter()
     vs = dryrun_vs_card(cfg, params, batch)
     del params
@@ -4051,7 +4209,8 @@ def phase_distributed() -> dict:
     secs = {"total": time.perf_counter() - t0, "card": t1 - t0,
             "dryrun_host": t2 - t1, "dryrun_vs_card": time.perf_counter() - t2}
     log({"distributed_s": secs})
-    return {"seconds": secs, "dryrun": dry, "dryrun_vs_card": vs}
+    return {"seconds": secs, "dryrun": dry, "dryrun_family": family,
+            "dryrun_vs_card": vs}
 
 
 def card_line() -> str:
@@ -4062,6 +4221,8 @@ def card_line() -> str:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dryrun-cells"]:
+        return dryrun_cells(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -4081,6 +4242,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     phase_build()
+    family = start_family_dryrun()
     k6 = phase_k6()
     k5 = phase_k5()
     k4 = phase_k4()
@@ -4122,7 +4284,8 @@ def main() -> int:
                          "models": time.perf_counter() - t0}})
     phase_vlm_audio(tps)
     phase_train(tps)
-    phase_distributed()
+    phase_distributed(family)
+    phase_repolint()
     k4_row = k4[("bfloat16", "gpt2-large")]
     k5_row = k5["full-width"]
     k6_row = k6["full-width"]

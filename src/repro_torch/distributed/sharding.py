@@ -35,7 +35,13 @@ inside ``activation_policy(mesh)`` and on a DTensor it redistributes ``x``
 to the layout the logical axis names give (batch on ``("pod", "data")``,
 heads / ff / vocab / experts on ``model``, each only where the dimension
 divides); outside a policy, or on a plain tensor, it returns ``x``
-untouched, so the one-card paths run unchanged.
+untouched, so the one-card paths run unchanged. So do the other helpers
+the models call under a policy: ``per_shard`` runs an op whose batch rows
+and heads are independent (a scan, attention) on each rank's own shards,
+where DTensor's rules for its reshapes and products differ between torch
+releases; ``cache_zeros`` builds a prefill's cache in the
+``cache_pspecs`` layout; ``reshape`` and ``pin`` bring a gradient into a
+tensor's own layout where DTensor could not take it as it arrives.
 """
 from __future__ import annotations
 
@@ -395,6 +401,25 @@ class activation_policy:
         return False
 
 
+def logical_spec(mesh, shape, logical) -> P:
+    """The spec the logical axis names give a tensor of ``shape`` on
+    ``mesh``: batch on ``("pod", "data")``, heads / ff / vocab / experts
+    on ``model``, each only where the dimension divides."""
+    dp = dp_axes(mesh)
+    dp_size = int(np.prod([mesh_axis_size(mesh, a) for a in dp]))
+    assert len(logical) == len(shape), (logical, shape)
+    spec = []
+    for dim, name in enumerate(logical):
+        ax = _LOGICAL.get(name)
+        if ax == "__dp__":
+            spec.append(dp if shape[dim] % dp_size == 0 else None)
+        elif ax is not None and shape[dim] % mesh_axis_size(mesh, ax) == 0:
+            spec.append(ax)
+        else:
+            spec.append(None)
+    return P(*spec)
+
+
 def constrain(x, *logical):
     """Redistribute a DTensor per the logical-axis names (or None) inside
     a policy; ``x`` itself otherwise."""
@@ -404,20 +429,8 @@ def constrain(x, *logical):
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    dp = dp_axes(mesh)
-    dp_size = int(np.prod([mesh_axis_size(mesh, a) for a in dp]))
-    assert len(logical) == x.ndim, (logical, x.shape)
-    spec = []
-    for dim, name in enumerate(logical):
-        ax = _LOGICAL.get(name)
-        if ax == "__dp__":
-            spec.append(dp if x.shape[dim] % dp_size == 0 else None)
-        elif ax is not None and \
-                x.shape[dim] % mesh_axis_size(mesh, ax) == 0:
-            spec.append(ax)
-        else:
-            spec.append(None)
-    return x.redistribute(mesh, placements(mesh, P(*spec)))
+    return x.redistribute(mesh, placements(
+        mesh, logical_spec(mesh, x.shape, logical)))
 
 
 def reshape(x, *shape):
@@ -425,14 +438,16 @@ def reshape(x, *shape):
     dimension cannot be split evenly into the new shape (a projection of
     H·D columns sharded wider than H heads) is first replicated on the
     dimensions the reshape changes, the reshard GSPMD inserts by itself in
-    the reference."""
+    the reference. The result's layout is pinned, so that its gradient
+    comes back in that layout before the reshape's backward (a gradient
+    sharded on H·D columns cannot be split into H heads either)."""
     if _POLICY["mesh"] is None:
         return x.reshape(*shape)
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if not isinstance(x, DTensor):
         return x.reshape(*shape)
     try:
-        return x.reshape(*shape)
+        out = x.reshape(*shape)
     except RuntimeError:
         keep = 0
         while keep < min(x.dim(), len(shape)) and \
@@ -440,7 +455,21 @@ def reshape(x, *shape):
             keep += 1
         pl = tuple(Replicate() if isinstance(p, Shard) and p.dim >= keep
                    else p for p in x.placements)
-        return x.redistribute(x.device_mesh, pl).reshape(*shape)
+        out = x.redistribute(x.device_mesh, pl).reshape(*shape)
+    return pin(out)
+
+
+def pin(x):
+    """Inside a policy, a DTensor with its layout pinned: ``x`` itself in
+    forward, and in backward its gradient brought into ``x``'s layout
+    (what arrives there may be sharded or a partial sum). Outside a
+    policy, or on a plain tensor, ``x`` itself."""
+    if _POLICY["mesh"] is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, x.placements)
 
 
 def reduce_partial(x):
@@ -496,3 +525,95 @@ def take_rows(table, ids):
                  for p in pl)
     rows = table.redistribute(mesh, rep).to_local(grad_placements=grad)
     return DTensor.from_local(rows[local], mesh, pl, run_check=False)
+
+
+def per_shard(fn, args, logical, out_logical):
+    """Inside an activation policy, with a DTensor among ``args``:
+    ``fn(*args)`` on each rank's own shards, as GSPMD partitions an op
+    whose batch rows and heads are independent (a scan, attention); None
+    outside a policy or without a DTensor.
+
+    ``logical`` names each argument's dimensions as ``constrain`` does
+    (None for an argument that is not a tensor); every tensor argument is
+    placed by its names (a DTensor redistributed, a plain tensor cut to
+    this rank's slice), so an argument named all None is whole on every
+    rank. ``fn`` runs outside the policy, the one-device code on local
+    tensors, and each of its outputs (one tensor, or a tuple) becomes a
+    DTensor of the layout its names in ``out_logical`` give. The names
+    must give the outputs the layout the computation leaves them in:
+    ``fn`` is not told which shard it holds. DTensor's own rules for the
+    reshapes and batched products inside such ops differ between torch
+    releases (some refuse a flatten of two sharded dimensions)."""
+    mesh = _POLICY["mesh"]
+    if mesh is None:
+        return None
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    if not any(isinstance(a, DTensor) for a in args):
+        return None
+    pls = [placements(mesh, logical_spec(mesh, a.shape, n))
+           if n is not None and isinstance(a, torch.Tensor) else None
+           for a, n in zip(args, logical)]
+    # mesh dimensions the work is split over: an argument whole on one of
+    # them sees only its rank's part of the work, so its gradient there is
+    # a partial sum
+    split = {i for pl in pls if pl for i, p in enumerate(pl)
+             if isinstance(p, Shard)}
+
+    def local(a, pl):
+        if pl is None:
+            return a
+        if isinstance(a, DTensor):
+            a = reduce_partial(a)
+            grad = tuple(Partial() if i in split and isinstance(p, Replicate)
+                         else p for i, p in enumerate(pl))
+            return (a if a.placements == pl else
+                    a.redistribute(mesh, pl)).to_local(grad_placements=grad)
+        return distribute_tensor(a, mesh, pl, src_data_rank=None).to_local()
+
+    loc = [local(a, pl) for a, pl in zip(args, pls)]
+    set_activation_policy(None)
+    try:
+        out = fn(*loc)
+    finally:
+        set_activation_policy(mesh)
+    single = isinstance(out, torch.Tensor)
+    outs, names = ((out,), (out_logical,)) if single else (out, out_logical)
+    sizes = {}
+    for a, n in zip(args, logical):     # each logical name's global size
+        if n is not None and isinstance(a, torch.Tensor):
+            sizes.update({nm: a.shape[d] for d, nm in enumerate(n)
+                          if nm is not None})
+    wrapped = []
+    for o, n in zip(outs, names):
+        shape = [sizes.get(nm, o.shape[d]) if nm is not None else o.shape[d]
+                 for d, nm in enumerate(n)]
+        pl = placements(mesh, logical_spec(mesh, shape, n))
+        wrapped.append(DTensor.from_local(o, mesh, pl, run_check=False))
+    return wrapped[0] if single else tuple(wrapped)
+
+
+def cache_zeros(cfg: ModelConfig, make: Callable, like):
+    """``make(device)``: a model's zero cache or state on ``like``'s device.
+    Inside a policy, with ``like`` a DTensor, the same zeros as DTensors on
+    the policy's mesh in the ``cache_pspecs`` layout (fitted to the mesh),
+    each rank allocating only its own shard: the layout the reference's
+    sharded serving step gives its cache."""
+    mesh = _POLICY["mesh"]
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if mesh is None or not isinstance(like, DTensor):
+        return make(like.device)
+    meta = make("meta")
+    specs = fit_pspecs(mesh, cache_pspecs(mesh, cfg, meta), meta)
+
+    def one(_path, leaf, spec):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        pl = placements(mesh, spec)
+        shard = distribute_tensor(leaf, mesh, pl, src_data_rank=None)
+        z = torch.zeros(shard.to_local().shape, dtype=leaf.dtype,
+                        device=like.device)
+        return DTensor.from_local(z, mesh, pl, run_check=False,
+                                  shape=leaf.shape, stride=leaf.stride())
+
+    return tree_map_with_path(one, meta, specs)

@@ -45,6 +45,9 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \\
         --shape train_4k --mesh single
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out dryrun.jsonl
+
+``--all`` runs as many cells at once as the host has cores, each in a
+process of its own.
 """
 from __future__ import annotations
 
@@ -291,11 +294,15 @@ def greedy_redistribution():
     the (2, 16, 16) mesh that search takes minutes per op (cell B: 485 s
     at full depth, 4.9 s greedy at one layer). Inside this context the
     greedy plan is tried first and the search runs only where greedy
-    cannot plan; the cached plans are dropped on exit. Without the
-    internals this relies on (another torch version), plans are left
-    alone."""
+    cannot plan; the cached plans are dropped on exit. A greedy plan that
+    moves a strided shard straight to another shard (which the greedy
+    planner writes but cannot run) is replaced by gathering whole and
+    cutting. Without the internals this relies on (another torch
+    version), plans are left alone."""
     try:
+        from torch.distributed.tensor import Replicate
         from torch.distributed.tensor import _redistribute as R
+        from torch.distributed.tensor._dtensor_spec import DTensorSpec
         orig = R._gen_transform_infos_non_cached
         planner = R.get_redistribute_planner
         cached = R._gen_transform_infos
@@ -303,10 +310,22 @@ def greedy_redistribution():
         yield
         return
 
+    def strided_to_shard(info):
+        a, b = (type(p).__name__ for p in info.src_dst_placements)
+        return "Shard" in a and "Shard" in b and "Strided" in a + b
+
     def greedy_first(src, dst, use_graph_based_transform=None):
         try:
-            return planner(src.device_mesh, src.tensor_meta) \
-                .generate_greedy_transform_infos(src, dst)
+            greedy = planner(src.device_mesh, src.tensor_meta) \
+                .generate_greedy_transform_infos
+            infos = greedy(src, dst)
+            # the greedy planner moves a strided shard to another shard in
+            # one step, which it cannot run: gather whole, then cut
+            if any(strided_to_shard(i) for i in infos):
+                whole = DTensorSpec(src.mesh, (Replicate(),) * src.mesh.ndim,
+                                    tensor_meta=src.tensor_meta)
+                infos = greedy(src, whole) + greedy(whole, dst)
+            return infos
         except Exception:
             return orig(src, dst, use_graph_based_transform)
 
@@ -423,6 +442,23 @@ def run_cell(arch: str, shape_name, mesh_name: str,
     return rec
 
 
+def _run_cells(cells, jobs: int):
+    """``run_cell`` of each (arch, shape, mesh) in ``cells``, records in
+    the order they finish: ``jobs`` at once, each cell in a fresh spawned
+    process (a cell is host work on ``meta``, one core's; its process
+    group lives in its process), or one after another for ``jobs`` 1."""
+    if jobs <= 1:
+        for cell in cells:
+            yield run_cell(*cell)
+        return
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, as_completed
+    with ProcessPoolExecutor(jobs, mp_context=multiprocessing.get_context(
+            "spawn"), max_tasks_per_child=1) as ex:
+        for fut in as_completed([ex.submit(run_cell, *c) for c in cells]):
+            yield fut.result()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -460,11 +496,9 @@ def main(argv=None):
         cells = [(a, s.name, m) for a in archs for s in SHAPES.values()
                  if shape_applicable(get_config(a), s) for m in meshes]
         print(f"dry-run: {len(cells)} cells ({len(done)} already done)")
+        todo = [c for c in cells if c not in done]
         n_fail = 0
-        for arch, shape_name, mesh_name in cells:
-            if (arch, shape_name, mesh_name) in done:
-                continue
-            rec = run_cell(arch, shape_name, mesh_name)
+        for rec in _run_cells(todo, os.cpu_count() or 1):
             emit(rec)
             n_fail += rec["status"] != "ok"
         print(f"dry-run complete; failures: {n_fail}")

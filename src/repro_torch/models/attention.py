@@ -36,8 +36,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (constrain, mesh_axis_size,
-                                               policy_mesh, reshape,
-                                               set_activation_policy)
+                                               per_shard, policy_mesh,
+                                               reshape)
 from repro_torch.kernels import ops
 from repro_torch.models.common import Params, dense_init, pdtype, remat
 
@@ -71,7 +71,8 @@ def qkv_proj(cfg: ModelConfig, p: Params, x):
 def out_proj(cfg: ModelConfig, p: Params, o):
     B, S = o.shape[:2]
     o = constrain(o, "batch", "seq", "heads", None)
-    out = o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"].to(o.dtype)
+    out = reshape(o, B, S, cfg.num_heads * cfg.head_dim) @ \
+        p["wo"].to(o.dtype)
     return constrain(out, "batch", "seq", "embed")
 
 
@@ -103,46 +104,24 @@ def _repeat_kv(k, num_q_heads):
 
 
 def _per_shard(fn, q, k, v, kv_len=None, q_offset=0):
-    """Inside an activation policy, on DTensors: ``fn`` on each rank's own
-    shards, as tensor-parallel attention runs (batch rows and heads are
-    independent), the result a DTensor of q's layout; None elsewhere.
-
-    q, k and v are first placed alike: batch (dimension 0) and heads
-    (dimension 2) keep q's sharding, the sequence and head dimensions are
-    gathered (a sequence-sharded cache is all-gathered, as GSPMD does for
-    the reference's non-sequence-parallel decode). ``kv_len`` and
+    """Inside an activation policy, on DTensors: ``fn(q, k, v, kv_len,
+    q_offset)`` on each rank's own batch rows and heads, as
+    tensor-parallel attention runs (``sharding.per_shard``), the result a
+    DTensor of q's layout; None elsewhere. The sequence is gathered (a
+    sequence-sharded cache is all-gathered, as GSPMD does for the
+    reference's non-sequence-parallel decode); ``kv_len`` and
     ``q_offset`` of one entry per batch row are cut to this rank's rows.
-    ``fn`` runs outside the policy: the one-device code on local tensors.
     DTensor would otherwise run the products as one batched matmul over
     batch x heads, a flatten of two sharded dimensions that some torch
-    releases refuse.
-    """
-    mesh = policy_mesh()
-    if mesh is None:
-        return None
-    from torch.distributed.tensor import (DTensor, Replicate, Shard,
-                                          distribute_tensor)
-    if not isinstance(q, DTensor):
-        return None
-    pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else
-               Replicate() for p in q.placements)
-    q, k, v = (t.redistribute(mesh, pl) if t.placements != pl else t
-               for t in (q, k, v))
-    rows = tuple(Shard(0) if p == Shard(0) else Replicate() for p in pl)
+    releases refuse."""
+    B = q.shape[0]
 
-    def local_rows(t):
-        if isinstance(t, torch.Tensor) and t.dim() >= 1 and \
-                t.shape[0] == q.shape[0] > 1:
-            return distribute_tensor(t, mesh, rows,
-                                     src_data_rank=None).to_local()
-        return t
-    set_activation_policy(None)
-    try:
-        out = fn(q.to_local(), k.to_local(), v.to_local(),
-                 local_rows(kv_len), local_rows(q_offset))
-    finally:
-        set_activation_policy(mesh)
-    return DTensor.from_local(out, mesh, pl, run_check=False)
+    def rows(t):
+        return ("batch",) if isinstance(t, torch.Tensor) and \
+            t.dim() == 1 and t.shape[0] == B > 1 else None
+    names = ("batch", None, "heads", None)
+    return per_shard(fn, (q, k, v, kv_len, q_offset),
+                     (names,) * 3 + (rows(kv_len), rows(q_offset)), names)
 
 
 def attention_direct(q, k, v, *, causal: bool, q_offset=0,

@@ -16,8 +16,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (constrain, reduce_partial,
-                                               take_rows)
+from repro_torch.distributed.sharding import (constrain, pin,
+                                               reduce_partial, take_rows)
 
 Params = Dict[str, Any]
 
@@ -128,7 +128,9 @@ def logits_head(cfg: ModelConfig, p: Params, x):
     """x (..., d) -> (..., V) logits in ``cfg.logits_dtype`` (tied head:
     the token embedding matrix)."""
     w = p["tok"] if cfg.tie_embeddings else p["head"]
-    out = torch.matmul(x, w.to(x.dtype).t())
+    # a tied table's two gradients (the lookup's and this product's, a
+    # partial sum where the vocab is not sharded) meet in its own layout
+    out = torch.matmul(x, pin(w).to(x.dtype).t())
     if out.dim() == 3:
         out = constrain(out, "batch", "seq", "vocab")
     return out.to(_DTYPES[cfg.logits_dtype])

@@ -20,7 +20,8 @@ reference writes it: ``F.conv1d`` would go through cuDNN, which runs f32
 convolutions in TF32 by default. The reference's activation constraints
 (``constrain``) sit at the same places; they redistribute DTensors inside
 an activation policy (``distributed/sharding.py``) and are the identity
-outside one.
+outside one; inside one the SSD scan and the one-token step run on each
+rank's own batch rows and heads (``sharding.per_shard``).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, per_shard, reshape
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_chunk import ssd_chunked_plain as ssd_chunked, ssd_step
 from repro_torch.models.common import Params, dense_init, pdtype
@@ -74,7 +75,17 @@ def _split_proj(cfg: ModelConfig, proj):
 
 
 def causal_conv(xBC, w, b):
-    """Depthwise causal conv. xBC (B,S,Ch); w (W,Ch)."""
+    """Depthwise causal conv. xBC (B,S,Ch); w (W,Ch). Under an activation
+    policy on each rank's own batch rows and channels
+    (``sharding.per_shard``): DTensor's rule for the padding is not
+    dependable across torch releases."""
+    out = per_shard(_causal_conv, (xBC, w, b),
+                    (("batch", None, "ff"), (None, "ff"), ("ff",)),
+                    ("batch", None, "ff"))
+    return out if out is not None else _causal_conv(xBC, w, b)
+
+
+def _causal_conv(xBC, w, b):
     W = w.shape[0]
     S = xBC.shape[1]
     pad = F.pad(xBC, (0, 0, W - 1, 0))
@@ -106,6 +117,19 @@ def _dt_decay(p: Params, dt):
     return dt, -torch.exp(p["A_log"]) * dt
 
 
+def _scan_per_shard(fn, lead, x, dt, la, Bm, Cm, h):
+    """``fn(x, dt, la, Bm, Cm, h)``, the chunked scan (``lead`` = batch,
+    seq) or the one-token step (``lead`` = batch): under an activation
+    policy on each rank's batch rows and heads (``sharding.per_shard``),
+    as GSPMD partitions the reference's scan; plain otherwise."""
+    heads = lead + ("heads",)
+    xn = heads + (None,)
+    hn = ("batch", "heads", None, None)
+    args = (x, dt, la, Bm, Cm, h)
+    return per_shard(fn, args, (xn, heads, heads, lead + (None,),
+                                lead + (None,), hn), (xn, hn)) or fn(*args)
+
+
 def mamba2_forward(cfg: ModelConfig, p: Params, x, state=None):
     """Full-sequence mixer. x (B,S,d) -> (B,S,d), (conv_state, ssm_state).
 
@@ -127,18 +151,20 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x, state=None):
         h0 = torch.zeros((Bz, H, N, P), dtype=torch.float32,
                          device=x.device)
     xBC_conv = F.silu(xBC_conv)
-    xs = xBC_conv[..., :d_in].reshape(Bz, S, H, P).float()
+    xs = reshape(xBC_conv[..., :d_in], Bz, S, H, P).float()
     xs = constrain(xs, "batch", "seq", "heads", None)
     Bm = xBC_conv[..., d_in:d_in + N].float()
     Cm = xBC_conv[..., d_in + N:].float()
     dt, la = _dt_decay(p, dt)                                   # (B,S,H)
     if cfg.attn_impl == "flash":
         # K6 takes contiguous tensors only: xs, Bm and Cm are slices
-        y, h = ops.ssd(*(a.contiguous() for a in (xs, dt, la, Bm, Cm, h0)))
+        def scan(*a):
+            return ops.ssd(*(t.contiguous() for t in a))
     else:
-        y, h = ssd_chunked(xs, dt, la, Bm, Cm, h0)
+        scan = ssd_chunked
+    y, h = _scan_per_shard(scan, ("batch", "seq"), xs, dt, la, Bm, Cm, h0)
     y = y + xs * p["D"][None, None, :, None]
-    y = constrain(y.reshape(Bz, S, d_in), "batch", "seq", "ff")
+    y = constrain(reshape(y, Bz, S, d_in), "batch", "seq", "ff")
     y = _gated_rmsnorm(y, z.float(), p["gn_w"])
     out = constrain(y.to(dt_a) @ p["out_proj"].to(dt_a),
                     "batch", "seq", "embed")
@@ -162,12 +188,12 @@ def mamba2_step(cfg: ModelConfig, p: Params, x, state):
     xBC_c, conv_state = conv_step(xBC, conv_state, p["conv_w"].to(dt_a),
                                   p["conv_b"].to(dt_a))
     xBC_c = F.silu(xBC_c)
-    xs = xBC_c[..., :d_in].reshape(Bz, H, P).float()
+    xs = reshape(xBC_c[..., :d_in], Bz, H, P).float()
     Bm = xBC_c[..., d_in:d_in + N].float()
     Cm = xBC_c[..., d_in + N:].float()
     dt, la = _dt_decay(p, dt)                                   # (B,H)
-    y, h = ssd_step(xs, dt, la, Bm, Cm, h)
+    y, h = _scan_per_shard(ssd_step, ("batch",), xs, dt, la, Bm, Cm, h)
     y = y + xs * p["D"][None, :, None]
-    y = _gated_rmsnorm(y.reshape(Bz, d_in), z.float(), p["gn_w"])
+    y = _gated_rmsnorm(reshape(y, Bz, d_in), z.float(), p["gn_w"])
     out = (y.to(dt_a) @ p["out_proj"].to(dt_a))[:, None, :]
     return out, (conv_state, h)

@@ -53,7 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (constrain, per_shard, reshape,
+                                               take_rows)
 from repro_torch.models.common import Params, dense_init, pdtype
 
 
@@ -98,34 +99,59 @@ def load_balance_loss(cfg: ModelConfig, probs, idx):
     return E * torch.sum(frac_tokens * frac_probs) / cfg.experts_per_token
 
 
+def _dispatch_plan(idx_asc, E: int, C: int):
+    """The dispatch's bookkeeping from each token's k choices in
+    ascending expert order, idx_asc (T, k): the sorted assignment each
+    buffer slot (e, r) reads (E, C), whether it holds one (E, C), the
+    buffer row e·C + rank each assignment (t, j) reads back (T·k), and
+    whether it was kept (T·k)."""
+    T, k = idx_asc.shape
+    dev = idx_asc.device
+    flat_expert = idx_asc.reshape(T * k)                 # row-major: t*k + j
+    sorted_expert, order = torch.sort(flat_expert, stable=True)
+    sorted_token = order // k
+    # expert e's queue starts at the first sorted assignment >= e
+    starts = torch.searchsorted(sorted_expert, torch.arange(E, device=dev))
+    counts = torch.diff(starts, append=starts.new_full((1,), T * k))
+    # dispatch: slot (e, r) holds sorted assignment starts[e] + r
+    r = torch.arange(C, device=dev)
+    filled = r[None, :] < counts[:, None]                # (E, C)
+    src = torch.clamp(starts[:, None] + r[None, :], max=T * k - 1)
+    # combine: assignment (t, j) sits at sorted position pos, rank
+    # pos - starts[e] in its expert's queue (a permutation: no collisions)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(T * k, device=dev)
+    rank = pos - starts[flat_expert]
+    keep = rank < C
+    slot = flat_expert * C + torch.where(keep, rank, 0)
+    return sorted_token[src], filled, slot, keep
+
+
 def apply_moe(cfg: ModelConfig, p: Params, x, return_aux: bool = False):
-    """x (B, S, d) -> (B, S, d) [, aux_loss]."""
+    """x (B, S, d) -> (B, S, d) [, aux_loss].
+
+    Inside an activation policy the bookkeeping (``_dispatch_plan``: the
+    sort and the counts over every token of the batch, which decide the
+    drops) runs whole on every rank (``sharding.per_shard`` with no
+    dimension sharded: T·k ids), and the buffer and the combine gather
+    their rows by ``sharding.take_rows``."""
     B, S, d = x.shape
     T = B * S
     k = cfg.experts_per_token
     E = cfg.num_experts
     C = moe_capacity(cfg, T)
     dt = x.dtype
-    dev = x.device
     xf = x.reshape(T, d)
 
     gates, idx, probs = route_topk(cfg, p, xf)
     # each token's k choices in ascending expert order: the combine's order
     idx_asc, perm = torch.sort(idx, dim=-1)
-    flat_expert = idx_asc.reshape(T * k)                 # row-major: t*k + j
     flat_gate = torch.gather(gates, 1, perm).reshape(T * k)
+    plan = per_shard(lambda i: _dispatch_plan(i, E, C), (idx_asc,),
+                     ((None, None),), ((None, None),) * 2 + ((None,),) * 2)
+    src, filled, slot, keep = plan or _dispatch_plan(idx_asc, E, C)
 
-    sorted_expert, order = torch.sort(flat_expert, stable=True)
-    sorted_token = order // k
-    # expert e's queue starts at the first sorted assignment >= e
-    starts = torch.searchsorted(sorted_expert, torch.arange(E, device=dev))
-    counts = torch.diff(starts, append=starts.new_full((1,), T * k))
-
-    # dispatch: slot (e, r) holds sorted assignment starts[e] + r
-    r = torch.arange(C, device=dev)
-    filled = r[None, :] < counts[:, None]                # (E, C)
-    src = torch.clamp(starts[:, None] + r[None, :], max=T * k - 1)
-    buf = torch.where(filled[..., None], xf[sorted_token[src]], 0.0)
+    buf = torch.where(filled[..., None], take_rows(xf, src), 0.0)
     buf = constrain(buf, "expert", None, None)
 
     h = constrain(torch.bmm(buf, p["wi"].to(dt)), "expert", None, None)
@@ -136,20 +162,13 @@ def apply_moe(cfg: ModelConfig, p: Params, x, return_aux: bool = False):
     out = constrain(torch.bmm(h, p["wo"].to(dt)),        # (E, C, d)
                     "expert", None, None)
 
-    # combine: assignment (t, j) sits at sorted position pos, rank
-    # pos - starts[e] in its expert's queue (a permutation: no collisions)
-    pos = torch.empty_like(order)
-    pos[order] = torch.arange(T * k, device=dev)
-    rank = pos - starts[flat_expert]
-    keep = rank < C
-    rank_c = torch.where(keep, rank, 0)
     w = (flat_gate * keep).to(dt)[:, None]
-    rows = constrain(out[flat_expert, rank_c], "batch", None)
-    rows = (rows * w).reshape(T, k, d)
+    rows = constrain(take_rows(out.reshape(E * C, d), slot), "batch", None)
+    rows = reshape(rows * w, T, k, d)
     y = rows[:, 0]
     for j in range(1, k):
         y = y + rows[:, j]
-    y = constrain(y.reshape(B, S, d), "batch", "seq", "embed")
+    y = constrain(reshape(y, B, S, d), "batch", "seq", "embed")
     if return_aux:
         return y, load_balance_loss(cfg, probs, idx)
     return y

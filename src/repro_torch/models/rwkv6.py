@@ -32,6 +32,9 @@ write would break autograd), through the plain chunked form under
 kernel has none. The reference's activation constraints (``constrain``)
 sit at the same places; they redistribute DTensors inside an activation
 policy (``distributed/sharding.py``) and are the identity outside one.
+Inside a policy the WKV scan and the one-token step run on each rank's
+own batch rows and heads (``sharding.per_shard``), and a prefill builds
+its state in the ``cache_pspecs`` layout (``sharding.cache_zeros``).
 """
 from __future__ import annotations
 
@@ -42,7 +45,8 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (cache_zeros, constrain,
+                                               per_shard, reshape)
 from repro_torch.kernels import ops
 from repro_torch.kernels.rwkv6_chunk import (
     wkv6_chunked_plain as wkv6_chunked, wkv6_step)
@@ -140,12 +144,13 @@ def _tm_projections(cfg: ModelConfig, p: Params, x, x_last):
     mu = p["mu"].to(dt)
     xr, xk, xv, xg, xw = (x + (xs - x) * mu[i] for i in range(5))
     def c(a):
-        return constrain(a, "batch", "seq", "heads", None)
-    r = c((xr @ p["wr"].to(dt)).reshape(B, S, H, K))
-    k = c((xk @ p["wk"].to(dt)).reshape(B, S, H, K))
-    v = c((xv @ p["wv"].to(dt)).reshape(B, S, H, K))
+        return constrain(reshape(a, B, S, H, K), "batch", "seq", "heads",
+                         None)
+    r = c(xr @ p["wr"].to(dt))
+    k = c(xk @ p["wk"].to(dt))
+    v = c(xv @ p["wv"].to(dt))
     g = constrain(xg @ p["wg"].to(dt), "batch", "seq", "ff")
-    lw = c(_decay(p, xw).reshape(B, S, H, K))
+    lw = c(_decay(p, xw))
     return r, k, v, g, lw
 
 
@@ -155,7 +160,7 @@ def _head_groupnorm(y, w, b, eps: float = 1e-5):
     yf = y.float()
     mu = torch.mean(yf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(yf - mu), dim=-1, keepdim=True)
-    yn = ((yf - mu) * torch.rsqrt(var + eps)).reshape(B, S, H * K)
+    yn = reshape((yf - mu) * torch.rsqrt(var + eps), B, S, H * K)
     return yn * w.float() + b.float()
 
 
@@ -166,15 +171,24 @@ def time_mix(cfg: ModelConfig, p: Params, x, x_last, wkv_state, *,
     rf, kf, vf = (a.float() for a in (r, k, v))
     u = p["u"].float()
     if single_step:
-        y, state = wkv6_step(rf[:, 0], kf[:, 0], vf[:, 0], lw[:, 0], u,
-                             wkv_state)
-        y = y[:, None]
-    elif cfg.attn_impl == "flash":
-        y, state = ops.wkv6(rf, kf, vf, lw, u, wkv_state)
+        fn, names = wkv6_step, ("batch", "heads", None)
+        args = (rf[:, 0], kf[:, 0], vf[:, 0], lw[:, 0], u, wkv_state)
     else:
-        y, state = wkv6_chunked(rf, kf, vf, lw, u, wkv_state)
+        fn = ops.wkv6 if cfg.attn_impl == "flash" else wkv6_chunked
+        names = ("batch", "seq", "heads", None)
+        args = (rf, kf, vf, lw, u, wkv_state)
+    # under a policy on each rank's batch rows and heads (``per_shard``)
+    sn = ("batch", "heads", None, None)
+    y, state = per_shard(fn, args, (names,) * 4 + (("heads", None), sn),
+                         (names, sn)) or fn(*args)
+    if single_step:
+        y = y[:, None]
     y = _head_groupnorm(y, p["gn_w"], p["gn_b"])
-    out = (y.to(x.dtype) * F.silu(g)) @ p["wo"].to(x.dtype)
+    # the output's layout pinned as channel_mix pins its own: a partial
+    # sum left pending here would meet the token shift's carry (sharded
+    # on d), a redistribution some torch releases cannot plan
+    out = constrain((y.to(x.dtype) * F.silu(g)) @ p["wo"].to(x.dtype),
+                    "batch", "seq", "embed")
     return out, x[:, -1, :], state
 
 
@@ -238,7 +252,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens,
     (``make_state``'s layout; zeros when None) is advanced in place, layer
     by layer, and returned."""
     if state is None:
-        state = make_state(cfg, tokens.shape[0], tokens.device)
+        state = cache_zeros(
+            cfg, lambda dev: make_state(cfg, tokens.shape[0], dev), tokens)
     x = embed_tokens(cfg, params["embed"], tokens)
     for l, lp in enumerate(params["layers"]):
         x, (tl, cl, wk) = block(cfg, lp, x,

@@ -27,7 +27,10 @@ cache, each group (its Mamba2 blocks and the shared block) rematerialised
 in backward under ``cfg.remat``, as the reference's ``jax.checkpoint`` of
 its group body; training takes the plain chunked SSD form under
 ``attn_impl="xla"`` (kernel K6 has no gradient, as the reference's Pallas
-kernel has none).
+kernel has none). Inside an activation policy (``distributed/sharding.py``)
+a prefill builds its cache as DTensors in the ``cache_pspecs`` layout
+(``sharding.cache_zeros``), which the reference's sharded prefill gives
+its cache.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import cache_zeros
 from repro_torch.models import attention as attn, mamba2 as m2
 from repro_torch.models.common import (Params, adtype, apply_norm,
                                        chunked_cross_entropy,
@@ -189,7 +193,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens,
     """Process the prompt (B, S); returns (last-token logits (B,1,V),
     cache) with K/V zero-padded to ``capacity`` (default S)."""
     B, S = tokens.shape
-    cache = make_cache(cfg, B, max(capacity or S, S), device=tokens.device)
+    cache = cache_zeros(cfg, lambda dev: make_cache(
+        cfg, B, max(capacity or S, S), device=dev), tokens)
     x = forward_hidden(cfg, params, tokens, cache=cache)
     cache["index"] = S
     return logits_head(cfg, params["embed"], x[:, -1:, :]), cache

@@ -5,7 +5,9 @@
 
 Spawns 8 processes that join one gloo group through a file store in DIR,
 read ``DIR/inputs.npz`` and each write ``DIR/rank<r>.npz``: the sharded
-train step on a (2, 4) mesh beside the single-device step, 30 rounds of
+train step on a (2, 4) mesh beside the single-device step (tinyllama,
+and one reduced config of each other family, with its sharded prefill's
+logits), 30 rounds of
 ``compressed_psum`` over 8 ranks, ``pipeline_shard_map`` over 4 stages
 (two replicas of the 4-stage ring), ``sequence_parallel_softmax_combine``
 over 4 sequence shards, and ``reshard_params`` onto the 4 survivors of
@@ -101,6 +103,64 @@ def train(inp, out, rank):
         out["elastic_loss"] = loss.full_tensor().numpy()
 
 
+def families(inp, out, rank):
+    """Each family's reduced config (f32) on the (2, 4) mesh: the sharded
+    train step (loss on every rank, parameters from rank 0, and rank 0's
+    single-device step beside it) and the sharded prefill's logits; where
+    the prefill builds its cache (RWKV6, Zamba2), whether every cache
+    tensor holds the ``cache_pspecs`` layout."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import params_from_jax
+    from repro_torch.trainer import optimizer as opt
+    from repro_torch.trainer.train_loop import make_train_step
+
+    mesh = DeviceMesh("cpu", torch.arange(WORLD).reshape(2, 4),
+                      mesh_dim_names=("data", "model"))
+    for arch in (str(a) for a in inp["families"]):
+        pre = f"fam/{arch}/"
+        cfg = get_config(arch).reduced(activation_dtype="float32",
+                                       param_dtype="float32")
+        model = build_model(cfg)
+        params = params_from_jax(unflatten(inp, pre + "params/"),
+                                 device="cpu")
+        batch = {k: torch.as_tensor(v)
+                 for k, v in unflatten(inp, pre + "batch/").items()}
+        inputs = {k: torch.as_tensor(v)
+                  for k, v in unflatten(inp, pre + "prefill/").items()}
+        step = make_train_step(model, TrainConfig(warmup_steps=1,
+                                                  total_steps=2))
+        params_d = sh.distribute_params(mesh, params)
+        p2, _, m2 = sh.policy_call(
+            mesh, step, params_d, opt.init(params_d),
+            sh.distribute(mesh, batch, sh.batch_pspecs(mesh, batch)))
+        out[pre + "loss"] = m2["loss"].full_tensor().numpy()
+        logits, cache = sh.policy_call(
+            mesh, lambda p, i: model.prefill(p, **i), params_d,
+            sh.distribute(mesh, inputs, sh.batch_pspecs(mesh, inputs)))
+        out[pre + "logits"] = logits.full_tensor().numpy()
+        if cfg.family in ("ssm", "hybrid"):
+            specs = sh.fit_pspecs(mesh, sh.cache_pspecs(mesh, cfg, cache),
+                                  cache)
+            out[pre + "cache_layout"] = np.asarray(all(
+                isinstance(t, DTensor) and
+                t.placements == sh.placements(mesh, specs[k])
+                for k, t in cache.items() if k != "index"))
+        full = {k: v.full_tensor().numpy()       # a collective: every rank
+                for k, v in flat_leaves(p2).items()}
+        if rank == 0:
+            out.update({pre + "p/" + k: v for k, v in full.items()})
+            p1, _, m1 = step(params, opt.init(params), batch)
+            out[pre + "single_loss"] = m1["loss"].numpy()
+            for k, v in flat_leaves(p1).items():
+                out[pre + "single/" + k] = v.detach().numpy()
+
+
 def compressed(inp, out, rank):
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -157,6 +217,7 @@ def rank_main(rank, d):
     out = {}
     try:
         train(inp, out, rank)
+        families(inp, out, rank)
         compressed(inp, out, rank)
         pipeline_and_combine(inp, out, rank)
     finally:

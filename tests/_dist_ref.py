@@ -4,7 +4,10 @@
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python tests/_dist_ref.py DIR
 
-Reads ``DIR/inputs.npz`` and writes ``DIR/ref.npz``. Every mesh is made
+Reads ``DIR/inputs.npz`` and writes ``DIR/ref.npz``: tinyllama's sharded
+train step, each other family's sharded train step and prefill logits,
+the compressed all-reduce, the pipeline, the sequence-parallel combine
+and the elastic layouts. Every mesh is made
 with ``Auto`` axis types: jax 0.9's ``jax.make_mesh`` defaults to
 ``Explicit`` axes, under which the reference's gathers and
 ``with_sharding_constraint`` fail (its own four tests in
@@ -86,6 +89,41 @@ def train(inp, out):
         out["sharded_error"] = np.asarray(f"{type(e).__name__}: {e}")
 
 
+def families(inp, out):
+    """Each family's reduced config (f32): the sharded train step and the
+    sharded prefill's logits on the (2, 4) mesh, as ``train`` does for
+    tinyllama; a failure is recorded per family."""
+    m = mesh((2, 4), ("data", "model"))
+    for arch in (str(a) for a in inp["families"]):
+        pre = f"fam/{arch}/"
+        cfg = get_config(arch).reduced(activation_dtype="float32",
+                                       param_dtype="float32")
+        model = build_model(cfg)
+        params = unflatten(inp, pre + "params/")
+        batch = unflatten(inp, pre + "batch/")
+        inputs = unflatten(inp, pre + "prefill/")
+        step = make_train_step(model, TrainConfig(warmup_steps=1,
+                                                  total_steps=2))
+
+        def put(m, tree):
+            return jax.device_put(tree, jax.tree.map(
+                lambda s: NamedSharding(m, s), sh.batch_pspecs(m, tree)))
+
+        try:
+            with m, sh.activation_policy(m):
+                params_d = jax.device_put(params, sh.param_shardings(m,
+                                                                     params))
+                p2, _, m2 = jax.jit(step)(params_d, opt.init(params_d),
+                                          put(m, batch))
+                logits, _ = jax.jit(lambda p, i: model.prefill(p, **i))(
+                    params_d, put(m, inputs))
+            out[pre + "loss"] = np.asarray(m2["loss"])
+            out.update(flatten(p2, pre + "p/"))
+            out[pre + "logits"] = np.asarray(logits)
+        except Exception as e:  # recorded; the test reports it
+            out[pre + "error"] = np.asarray(f"{type(e).__name__}: {e}")
+
+
 def compressed(inp, out):
     m = mesh((8,), ("data",))
     f = jax.jit(shard_map_nocheck(
@@ -150,6 +188,7 @@ def main(d):
     inp = dict(np.load(f"{d}/inputs.npz"))
     out = {}
     train(inp, out)
+    families(inp, out)
     compressed(inp, out)
     pipeline(inp, out)
     sp_combine(inp, out)

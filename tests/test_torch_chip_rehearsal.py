@@ -331,6 +331,7 @@ def test_phase21_rehearsal(monkeypatch, capsys):
     monkeypatch.setattr(cs, "train_config", lambda layers=None:
                         dataclasses.replace(orig(layers), **tiny))
     monkeypatch.setattr(cs, "DRYRUN_OVERRIDES", tiny)
+    monkeypatch.setattr(cs, "DRYRUN_FAMILY_SCALE", _family_scale())
     cs.phase_distributed()
     assert not dist.is_initialized()
     rows = {}
@@ -352,3 +353,53 @@ def test_phase21_rehearsal(monkeypatch, capsys):
     vs = rows["dryrun_vs_card"][0]
     assert vs["argument_size_in_bytes"] == vs["card_argument_bytes"]
     assert vs["flops"] == vs["card_flops"] > 0
+    fam = rows["dryrun_family"]
+    assert [(r["arch"], r["shape"]) for r in fam] == \
+        list(cs.DRYRUN_FAMILY_CELLS)
+    assert all(r["mesh"] == "single" and r["dominant"] and
+               r["cost"]["flops"] > 0 for r in fam)
+
+
+def _family_scale():
+    """Phase 21's family cells cut for the CPU: each arch at its
+    ``.reduced()`` config, 128 tokens of 8 sequences."""
+    from repro_torch.configs import get_config
+    over = {}
+    for arch in ("qwen3-moe-30b-a3b", "rwkv6-1.6b", "zamba2-2.7b",
+                 "whisper-large-v3"):
+        full = get_config(arch)
+        red = full.reduced()
+        over[arch] = {f.name: getattr(red, f.name)
+                      for f in dataclasses.fields(red)
+                      if f.name != "name"
+                      and getattr(red, f.name) != getattr(full, f.name)}
+    return {"overrides": over, "shape": [128, 8]}
+
+
+def test_phase21_family_cells_and_phase22_repolint(monkeypatch, capsys):
+    """The new parts of phases 21 and 22 alone: the family cells started
+    in their own process (``--dryrun-cells``, as the script starts them
+    after the build) and collected, each ok with its dominant term; the
+    process is gone afterwards. Then phase 22: the port's linter over
+    ``src/repro_torch`` gives 0 findings and ``REPOLINT_ALLOWED`` (26)
+    allowed findings with every allow entry used, and a finding fails the
+    phase."""
+    import pytest
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "DRYRUN_FAMILY_SCALE", _family_scale())
+    handle = cs.start_family_dryrun()
+    fam = cs.phase_family_dryrun(handle)
+    assert handle["proc"].poll() == 0
+    assert [(r["arch"], r["shape"]) for r in fam] == \
+        list(cs.DRYRUN_FAMILY_CELLS)
+    assert {r["dominant"] for r in fam} <= {"compute", "memory",
+                                            "collective"}
+    row = cs.phase_repolint()
+    assert (row["findings"], row["allowed"], row["unused_allow"]) == \
+        (0, cs.REPOLINT_ALLOWED, [])
+    assert row["config"] == "repolint_torch.json" and row["files"] > 90
+    monkeypatch.setattr(cs, "REPOLINT_ALLOWED", 25)
+    with pytest.raises(AssertionError, match="repolint"):
+        cs.phase_repolint()
+    out = capsys.readouterr().out
+    assert '{"repolint": ' in out and '{"dryrun_family": ' in out

@@ -12,8 +12,10 @@ the reference's (``repro.distributed``).
 * Multi-rank, against the reference's sharded functions: one spawned gloo
   group of 8 CPU ranks (``tests/_dist_ranks.py``) and one JAX subprocess
   on 8 host devices with ``Auto`` mesh axes (``tests/_dist_ref.py``) run
-  side by side on the same numpy inputs: the sharded train step, 30 rounds
-  of ``compressed_psum``, ``pipeline_shard_map``,
+  side by side on the same numpy inputs: the sharded train step
+  (tinyllama, and one reduced config of each other family: qwen3-moe,
+  rwkv6, zamba2, whisper, qwen2-vl), each family's sharded prefill
+  logits, 30 rounds of ``compressed_psum``, ``pipeline_shard_map``,
   ``sequence_parallel_softmax_combine`` and elastic resharding.
 """
 import os
@@ -240,8 +242,53 @@ def _inputs(d):
     out["sp_q"] = rng.standard_normal((2, 4, 1, 16)).astype(np.float32)
     out["sp_k"] = rng.standard_normal((2, 64, 16)).astype(np.float32)
     out["sp_v"] = rng.standard_normal((2, 64, 16)).astype(np.float32)
+    # one reduced config per family beyond the dense one: its reference
+    # parameters, a train batch and prefill inputs
+    out["families"] = np.asarray(FAMILIES)
+    for arch in FAMILIES:
+        cfg = get_config(arch).reduced(activation_dtype="float32",
+                                       param_dtype="float32")
+        pre = f"fam/{arch}/"
+        params = build_model(cfg).init(jax.random.PRNGKey(0))
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+            out[pre + "params/" + "/".join(p.key for p in path)] = \
+                np.asarray(leaf)
+        for k, v in _family_inputs(cfg, rng).items():
+            out[pre + k] = v
     np.savez(d / "inputs.npz", **out)
     return out
+
+
+#: one reduced config per family the sharded step is held for (besides
+#: tinyllama's dense one): MoE, ssm, hybrid, audio, vlm
+FAMILIES = ("qwen3-moe-30b-a3b", "rwkv6-1.6b", "zamba2-2.7b",
+            "whisper-large-v3", "qwen2-vl-7b")
+
+
+def _family_inputs(cfg, rng, B=8, S=16):
+    """A train batch (``batch/``: tokens, labels; Whisper's stub frames,
+    Qwen2-VL's stub patches 4 positions ahead of the text and its
+    three-stream positions) and prefill inputs (``prefill/``) for
+    ``cfg``."""
+    V, d = cfg.vocab_size, cfg.d_model
+    tok = rng.integers(1, V, (B, S)).astype(np.int32)
+    b = {"batch/tokens": tok,
+         "batch/labels": rng.integers(0, V, (B, S)).astype(np.int32),
+         "prefill/tokens": rng.integers(1, V, (B, S)).astype(np.int32)}
+    if cfg.family == "audio":
+        for k in ("batch/frames", "prefill/frames"):
+            b[k] = rng.standard_normal((B, S, d)).astype(np.float32)
+    if cfg.family == "vlm":
+        sv = 4
+        pos = np.broadcast_to(np.arange(sv + S), (3, B, sv + S)).astype(
+            np.int32).copy()
+        b["batch/vision_embeds"] = (0.02 * rng.standard_normal(
+            (B, sv, d))).astype(np.float32)
+        b["batch/positions"] = pos
+        b["prefill/prefix_embeds"] = (0.02 * rng.standard_normal(
+            (B, sv, d))).astype(np.float32)
+        b["prefill/positions"] = pos
+    return b
 
 
 @pytest.fixture(scope="module")
@@ -299,6 +346,66 @@ def test_sharded_train_step_matches_single_and_reference(runs):
         np.testing.assert_allclose(v, want, atol=2e-4, err_msg=k)
     for r in ranks[1:]:
         assert r["sharded_loss"] == r0["sharded_loss"]
+
+
+_STACKED = ("layers", "mamba", "encoder", "decoder")
+
+
+def _ref_leaf(jref, k):
+    """The reference's leaf for the port's leaf ``k``: a per-layer leaf
+    "<stack>/<i>/..." is layer i of the stacked "<stack>/..."."""
+    parts = k.split("/")
+    if parts[0] in _STACKED:
+        return jref["/".join([parts[0]] + parts[2:])][int(parts[1])]
+    return jref[k]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_sharded_train_step_matches_reference(runs, arch):
+    """Each family's reduced config (MoE, RWKV6, Zamba2, Whisper,
+    Qwen2-VL), f32, one step on the (2, 4) mesh under the activation
+    policy: the port's sharded step against its single-device step and
+    against the reference's sharded step (JAX, ``Auto`` axes), loss rtol
+    1e-4 and every parameter atol 2e-4 (the tinyllama test's rule), the
+    same loss on every rank."""
+    _, ref, ranks = runs
+    pre = f"fam/{arch}/"
+    assert pre + "error" not in ref, str(ref.get(pre + "error"))
+    r0 = ranks[0]
+    np.testing.assert_allclose(r0[pre + "loss"], r0[pre + "single_loss"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(r0[pre + "loss"], ref[pre + "loss"],
+                               rtol=1e-4)
+    sharded, single = _tree(r0, pre + "p/"), _tree(r0, pre + "single/")
+    jref = _tree(ref, pre + "p/")
+    assert set(sharded) == set(single)
+    covered = {"/".join(k.split("/")[:1] + k.split("/")[2:])
+               if k.split("/")[0] in _STACKED else k for k in sharded}
+    assert covered == set(jref)
+    for k, v in sharded.items():
+        np.testing.assert_allclose(v, single[k], atol=2e-4, err_msg=k)
+        np.testing.assert_allclose(v, _ref_leaf(jref, k), atol=2e-4,
+                                   err_msg=k)
+    for r in ranks[1:]:
+        assert r[pre + "loss"] == r0[pre + "loss"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_sharded_prefill_matches_reference(runs, arch):
+    """Each family's sharded prefill on the (2, 4) mesh: the last-token
+    logits equal the reference's sharded prefill's within 1e-5 (f32) on
+    every rank; RWKV6's and Zamba2's prefill caches are DTensors in the
+    ``cache_pspecs`` layout."""
+    _, ref, ranks = runs
+    pre = f"fam/{arch}/"
+    assert pre + "error" not in ref, str(ref.get(pre + "error"))
+    want = ref[pre + "logits"]
+    assert want.shape == (8, 1, 256)
+    for r in ranks:
+        np.testing.assert_allclose(r[pre + "logits"], want, rtol=0,
+                                   atol=1e-5)
+        if arch in ("rwkv6-1.6b", "zamba2-2.7b"):
+            assert bool(r[pre + "cache_layout"])
 
 
 def test_distributed_params_hold_their_shards(runs):

@@ -2,10 +2,11 @@
 perf, mesh}``) held against the reference's.
 
 * The reference tests' two reduced dry-run cells (tinyllama ``train_tiny``
-  and granite's MQA ``decode_tiny``) through the port's ``run_cell`` on a
-  (2, 4) mesh, as ranks of an 8-rank process group that exchanges
-  nothing: each runs, counts FLOPs, and the train cell issues
-  collectives. (The dry-run on a 1 x 1 mesh against one plain step,
+  and granite's MQA ``decode_tiny``), and the train, prefill and decode
+  cells of one reduced config per other family (qwen3-moe, rwkv6, zamba2,
+  whisper, qwen2-vl), through the port's ``run_cell`` on a (2, 4) mesh,
+  as ranks of an 8-rank process group that exchanges nothing: each runs,
+  counts FLOPs, and a train cell issues collectives. (The dry-run on a 1 x 1 mesh against one plain step,
   argument bytes and FLOPs exactly, is phase 21's ``dryrun_vs_card``,
   rehearsed on the CPU in ``tests/test_torch_chip_rehearsal.py``.)
 * The roofline's pure functions exactly against the reference's:
@@ -28,8 +29,29 @@ ROOT = Path(__file__).resolve().parents[1]
 SMALL = ((2, 4), ("data", "model"))
 
 
-def _reduced_cell(kind):
+#: one reduced config of each family besides the dense one (MoE, ssm,
+#: hybrid, audio, vlm): every kind of step on the small mesh
+FAMILIES = ("qwen3-moe-30b-a3b", "rwkv6-1.6b", "zamba2-2.7b",
+            "whisper-large-v3", "qwen2-vl-7b")
+CASES = [(None, "train"), (None, "decode")] + \
+    [(arch, kind) for arch in FAMILIES for kind in ("train", "prefill",
+                                                    "decode")]
+
+
+def _reduced_cell(arch, kind):
+    """(arch, shape, overrides): the reference test's two cells (tinyllama
+    ``train_tiny``, granite's MQA ``decode_tiny``) when ``arch`` is None,
+    else ``arch``'s ``.reduced()`` config at 128 tokens of 8 sequences."""
+    import dataclasses
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
+    if arch is not None:
+        full = get_config(arch)
+        red = full.reduced()
+        ov = {f.name: getattr(red, f.name) for f in dataclasses.fields(red)
+              if f.name != "name"
+              and getattr(red, f.name) != getattr(full, f.name)}
+        return arch, ShapeConfig(f"{kind}_tiny", 128, 8, kind), ov
     if kind == "train":
         return ("tinyllama-1.1b", ShapeConfig("train_tiny", 128, 8, "train"),
                 {"num_layers": 2, "d_model": 64, "num_heads": 4,
@@ -41,13 +63,17 @@ def _reduced_cell(kind):
              "vocab_size": 256, "max_position": 512})
 
 
-@pytest.mark.parametrize("kind", ["train", "decode"])
-def test_reduced_cells_run_on_small_mesh(kind):
-    """``tests/test_distributed.py``'s two small-mesh cells through the
-    port's dry-run: status ok, FLOPs per device > 0, the train cell's
-    FSDP gathers and gradient reductions counted, memory recorded."""
+@pytest.mark.parametrize("arch,kind", CASES,
+                         ids=[k if a is None else f"{a}-{k}"
+                              for a, k in CASES])
+def test_reduced_cells_run_on_small_mesh(arch, kind):
+    """``tests/test_distributed.py``'s two small-mesh cells, and every
+    kind of step of one reduced config per family, through the port's
+    dry-run on a (2, 4) fake group: status ok, FLOPs per device > 0, a
+    train cell's FSDP gathers and gradient reductions counted, memory
+    recorded."""
     from repro_torch.launch.dryrun import run_cell
-    arch, shape, ov = _reduced_cell(kind)
+    arch, shape, ov = _reduced_cell(arch, kind)
     rec = run_cell(arch, shape, "test", overrides=ov, mesh_shape=SMALL,
                    cost_pass=True, verbose=False)
     assert rec["status"] == "ok", rec.get("traceback")
