@@ -34,8 +34,12 @@ device time):
    shared block B = 4, S = 2048, Hq = Hkv = 32, D = 80; each timed per
    call and on the device). Each kernel is timed beside its plain version
    and its bound (and K3 beside ``scaled_dot_product_attention``, a
-   yardstick the port never calls). K3's bf16 rows time the tensor-core
-   kernel, its f32 rows the FP32 one.
+   yardstick the port never calls). Every K3 row names the kernel that
+   served it (``flash_kernel``: bf16 at D = 64, 80, 128 on wgmma, at
+   D = 16, 32 on mma.sync, f32 on FP32 FMAs), and each row timed on the
+   device fails unless ``torch.profiler`` saw that kernel and no other K3
+   kernel. The build logs ptxas's registers and spills of every kernel and
+   each K3 / K4 instantiation's dynamic shared memory (``kernel_smem``).
 3. main path — full-width GPT-2 Large (36 layers, d_model 1280, vocab
    50257, random weights from a seed) served through
    ``GTRACPipelineServer.submit`` + ``run_queue`` with ``attn_impl="flash"``,
@@ -81,8 +85,11 @@ device time):
    bound and ``scaled_dot_product_attention`` with a live mask (a
    yardstick the port never calls), per call and on the device (the split
    and the combine kernel together), with its split plan; the four
-   engine shapes again with kv_len = 1, on the first split boundary, = S
-   and in the middle (``*-splits`` rows).
+   engine shapes again with kv_len = 1, on the first split boundary of
+   each dtype's plan, = S and in the middle (``*-splits`` rows). Every
+   row names its split kernel (``decode_plan``: the tensor-core kernel for
+   bf16 at D = 64, 80, 128, else the FMA kernel), and a timed row fails
+   unless the profiler saw it.
 11. KV-cache engine — ``ServingEngine.run_batch`` at full width, bf16,
    ``attn_impl="flash"``: zamba2-2.7b (54 Mamba2 blocks and 9 applications
    of its shared block, 2,396,455,840 parameters, random weights from the
@@ -430,10 +437,41 @@ def phase_build():
             # each kernel's entry line names it (mangled: the template
             # argument, e.g. the head dim, is in the name)
             if "registers" in line or "spill" in line.lower() or \
-                    "Compiling entry function" in line:
+                    "Compiling entry function" in line or \
+                    "Performance" in line:
                 log(f"ptxas {src}: {line.strip()}")
     log({"phase": "build", "seconds": round(secs, 3),
          "sources": sorted(logs)})
+    kernel_smem()
+
+
+def kernel_smem() -> None:
+    """Dynamic shared memory per block of each K3 and K4 instantiation, in
+    bytes (ptxas's lines above give each one's registers and spills): K3
+    per kernel and head dim; K4's tensor-core kernel with one tile per
+    split and with more (two stages), its FMA kernel at groups 1, 8 and
+    48 (bf16 only at D = 16, 32: the head dims it is built for)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    k3 = {f"{n}<{D}>": fa.smem_bytes(n, D) for n in fa.KERNELS
+          for D in fa.CUDA_HEAD_DIMS if fa.smem_bytes(n, D) >= 0}
+    k4 = {}
+    for D in da.MMA_HEAD_DIMS:
+        for rows, stages in ((da.MMA_TILE_ROWS, 1),
+                             (2 * da.MMA_TILE_ROWS, 2)):
+            k4[f"decode_split_mma_kernel<{D}>, {stages} stage(s)"] = \
+                da.smem_bytes("decode_split_mma_kernel", torch.bfloat16, D,
+                              1, rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in da.CUDA_HEAD_DIMS:
+            if da.decode_kernel(dtype, 1, D) != "decode_split_kernel":
+                continue
+            for G in (1, 8, 48):
+                k4[f"decode_split_kernel<{str(dtype)[6:]}, {D}>, G {G}"] = \
+                    da.smem_bytes("decode_split_kernel", dtype, D, G,
+                                  da.TILE_ROWS)
+    log({"kernel_smem": {"k3": k3, "k4": k4}})
 
 
 # ---------------------------------------------------------------------------
@@ -804,27 +842,53 @@ def k3_bound_ms(B, S, Hq, Hkv, D, dtype, causal, Sk=None) -> tuple:
             "operations")
 
 
-#: profiler names of K3's kernels, by input type
-K3_KERNELS = {"bfloat16": "flash_bf16_mma_kernel<",
-              "float32": "flash_f32_kernel<"}
+#: profiler names of K3's kernels (``flash_attention.KERNELS``): bf16 on
+#: wgmma (D = 64, 80, 128) and on mma.sync (D = 16, 32), f32 on FMAs
+K3_KERNELS = ("flash_bf16_wgmma_kernel<", "flash_bf16_mma_kernel<",
+              "flash_f32_kernel<")
 #: K3's timed engine shapes (B, S, Hq, Hkv, D), causal
 K3_ENGINE_SHAPES = {(4, 1024, 20, 20, 64): "gpt2-large",
                     (4, 2048, 32, 4, 64): "tinyllama-1.1b",
                     (4, 2048, 32, 32, 80): "zamba2-2.7b"}
-#: profiler names of K4's split and combine kernels
-K4_KERNELS = ("decode_split_kernel<", "decode_combine_kernel<")
+#: profiler names of K4's split kernels (FMA, tensor-core) and combine
+K4_KERNELS = ("decode_split_kernel<", "decode_split_mma_kernel<",
+              "decode_combine_kernel<")
 #: K5's and K6's two kernels: the pre-pass, then the scan
 K5_KERNELS = ("wkv6_prep_kernel<", "wkv6_scan_kernel<")
 K6_KERNELS = ("ssd_prep_kernel<", "ssd_scan_kernel<")
+
+
+def served_by(fn, want: str, names, what: str, companions=(),
+              iters: int = 5) -> tuple:
+    """Device time per call of ``fn``'s hand-written kernels (profiler
+    names matching ``names``) and the full profiler name of ``want``, from
+    ``torch.profiler``; fails unless ``want`` (a profiler name prefix,
+    such as ``"flash_bf16_wgmma_kernel<"``) ran and no kernel of ``names``
+    other than it and its ``companions`` (K4's combine) did. A profile
+    that records no device activity at all (seen about once in 40 on the
+    card) is taken again, three tries in all."""
+    for _ in range(3):
+        ours = [(k, t) for k, t in device_times(fn, iters)
+                if name_matches(k, names)]
+        if ours:
+            break
+    stray = [k for k, _ in ours
+             if want not in k and not name_matches(k, companions)]
+    if stray or not any(want in k for k, _ in ours):
+        raise AssertionError(f"{what}: served by {[k for k, _ in ours]}, "
+                             f"want {want}")
+    return sum(t for _, t in ours), next(k for k, _ in ours if want in k)
 
 
 def k3_case(gen, dtype, B, S, Hq, Hkv, D, causal, timed=False,
             shape=None, Sk=None) -> dict:
     """K3 against its plain version on one shape (random normal q, k, v
     from ``gen``; ``Sk`` keys, default S): fails beyond 2e-4 (f32) / 2e-2
-    (bf16) absolute. With ``timed``, the kernel, its plain version and
+    (bf16) absolute. The row names the kernel that served it
+    (``flash_kernel``). With ``timed``, the kernel, its plain version and
     SDPA per call, and the bound; with ``shape`` (a model's name) also the
-    kernel's and SDPA's device time."""
+    kernel's and SDPA's device time, failing unless the profiler saw the
+    named kernel and no other K3 kernel."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -840,13 +904,16 @@ def k3_case(gen, dtype, B, S, Hq, Hkv, D, causal, timed=False,
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     err = float((got.float() - want.float()).abs().max())
     name = str(dtype).replace("torch.", "")
+    kernel = fa.flash_kernel(dtype, D, S)
     if not err <= tol[dtype]:
         raise AssertionError(
             f"K3 {name} B={B} S={S} Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} "
-            f"causal={causal}: max abs err {err} > {tol[dtype]}")
+            f"causal={causal} ({kernel}): max abs err {err} > {tol[dtype]}")
     # the largest |o| sets the bf16 step the error is read against
+    nx, ny, nz = fa.flash_grid(B, S, Hq, kernel)
     row = {"dtype": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv,
-           "D": D, "causal": causal, "max_abs_err": err,
+           "D": D, "causal": causal, "kernel": kernel, "ctas": nx * ny * nz,
+           "max_abs_err": err,
            "max_abs_out": float(want.float().abs().max())}
     if Sk != S:
         row["Sk"] = Sk
@@ -865,9 +932,10 @@ def k3_case(gen, dtype, B, S, Hq, Hkv, D, causal, timed=False,
             B, S, Hq, Hkv, D, dtype, causal, Sk)
         if shape:
             row["shape"] = shape
-            row["device_ms_per_launch"] = device_ms(
+            row["device_ms_per_launch"], row["profiler_kernel"] = served_by(
                 lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
-                K3_KERNELS[name], iters=5)
+                kernel.split("/")[0] + "<", K3_KERNELS,
+                f"K3 {name} {shape}")
             row["library_device_ms"] = device_ms(sdpa, None, iters=5)
     log({"k3": row})
     return row
@@ -1843,7 +1911,7 @@ def phase_profile(cfg, params, key: str = "profile"):
             for k, (t, n) in kernels.items()
             if name_matches(k, ("route_kbest_kernel", "route_kernel(",
                                 "route_window_kbest_kernel",
-                                *K3_KERNELS.values()))}
+                                *K3_KERNELS))}
     log({key: {
         "model": cfg.name,
         "wall_s": wall, "tokens": sum(r.metrics.tokens for r in done),
@@ -2093,9 +2161,11 @@ def k4_case(gen, dtype, name, B, S, Hq, Hkv, D, lens, timed,
             sms) -> dict:
     """K4 against its plain version on one shape (random normal q and
     cache from ``gen``, live rows ``lens``): fails beyond 2e-4 (f32) /
-    2e-2 (bf16) absolute. With ``timed``, the kernel per call and on the
-    device (split and combine together), its plain version, SDPA with a
-    live mask and the bound, with the split plan."""
+    2e-2 (bf16) absolute. The row names the split kernel that served it
+    (``decode_plan``). With ``timed``, the kernel per call and on the
+    device (split and combine together; failing unless the profiler saw
+    the named split kernel), its plain version, SDPA with a live mask and
+    the bound, with the split plan."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
@@ -2107,6 +2177,7 @@ def k4_case(gen, dtype, name, B, S, Hq, Hkv, D, lens, timed,
                            dtype=torch.float32).to(dtype)
     q, k, v = randn(B, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
     kv_len = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    kernel, splits, _ = da.decode_plan(S, B, Hq, Hkv, D, dtype, sms)
     got = da.decode_attention_cuda(q, k, v, kv_len)
     want = da.decode_attention_plain(q, k, v, kv_len)
     sync()
@@ -2114,9 +2185,11 @@ def k4_case(gen, dtype, name, B, S, Hq, Hkv, D, lens, timed,
     if not err <= tol[dtype]:
         raise AssertionError(
             f"K4 {name_t} {name} B={B} S={S} Hq={Hq} Hkv={Hkv} "
-            f"D={D} kv_len={lens}: max abs err {err} > {tol[dtype]}")
+            f"D={D} kv_len={lens} ({kernel}): max abs err {err} > "
+            f"{tol[dtype]}")
     row = {"dtype": name_t, "shape": name, "B": B, "S": S, "Hq": Hq,
-           "Hkv": Hkv, "D": D, "kv_len": list(lens), "max_abs_err": err}
+           "Hkv": Hkv, "D": D, "kv_len": list(lens), "kernel": kernel,
+           "max_abs_err": err}
     if timed:
         qt = q[:, :, None, :]
         kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
@@ -2130,8 +2203,10 @@ def k4_case(gen, dtype, name, B, S, Hq, Hkv, D, lens, timed,
             (sdpa()[:, :, 0].float() - want.float()).abs().max())
         row["ms"] = cuda_ms(lambda: da.decode_attention_cuda(
             q, k, v, kv_len), iters=200)
-        row["device_ms_per_launch"] = device_ms(
-            lambda: da.decode_attention_cuda(q, k, v, kv_len), K4_KERNELS)
+        row["device_ms_per_launch"], row["profiler_kernel"] = served_by(
+            lambda: da.decode_attention_cuda(q, k, v, kv_len), kernel + "<",
+            K4_KERNELS, f"K4 {name_t} {name}",
+            companions=("decode_combine_kernel<",), iters=20)
         row["plain_ms"] = cuda_ms(lambda: da.decode_attention_plain(
             q, k, v, kv_len), iters=20)
         row["library_ms"] = cuda_ms(sdpa, iters=100)
@@ -2139,21 +2214,20 @@ def k4_case(gen, dtype, name, B, S, Hq, Hkv, D, lens, timed,
         row["library_device_ms"] = device_ms(sdpa, None)
         row["bound_ms"], row["bound_by"] = k4_bound_ms(
             B, Hq, Hkv, D, lens, dtype)
-        splits, _ = da.split_plan(S, B, Hkv, sms)
         row["splits"] = splits
         row["ctas"] = splits * Hkv * B
     log({"k4": row})
     return row
 
 
-def k4_split_rows(shapes, sms) -> list:
+def k4_split_rows(shapes, sms, dtype) -> list:
     """Each timed shape again with kv_len = 1 (every split past the first
-    empty), on the first split boundary (S when one split holds every
-    row), = S and in the middle."""
+    empty), on the first split boundary of the plan at ``dtype`` (S when
+    one split holds every row), = S and in the middle."""
     from repro_torch.kernels import decode_attention as da
     out = []
     for name, B, S, Hq, Hkv, D, _, _ in shapes:
-        _, bound = da.split_plan(S, B, Hkv, sms)
+        _, _, bound = da.decode_plan(S, B, Hq, Hkv, D, dtype, sms)
         out.append((name + "-splits", B, S, Hq, Hkv, D,
                     (1, min(bound, S), S, S // 2 + 3)[:B], False))
     return out
@@ -2176,10 +2250,9 @@ def phase_k4():
               ("small-mha", 1, 128, 5, 5, 16, (77,), False),
               ("small-mqa", 2, 200, 8, 1, 64, (200, 3), False)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    shapes += k4_split_rows(shapes[:4], sms)
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in shapes:
+        for shape in shapes + k4_split_rows(shapes[:4], sms, dtype):
             row = k4_case(gen, dtype, *shape, sms)
             if shape[-1]:
                 rows[(row["dtype"], shape[0])] = row
@@ -2810,7 +2883,7 @@ def engine_profile(arch, cfg, params, S: int, steps: int = 8) -> None:
         cur = torch.argmax(state["logits"][:, -1], dim=-1)[:, None]
         model.decode_step(params, cur, state["cache"])      # warm
         sync()
-        k3 = ("k3", tuple(K3_KERNELS.values()))
+        k3 = ("k3", K3_KERNELS)
         if cfg.family == "ssm":
             hand = [("k5", K5_KERNELS)]
         elif cfg.family == "hybrid":
@@ -2889,14 +2962,13 @@ def phase_zoo_kernels():
     cap = S + ENGINE_TOKENS + 64              # ServingEngine's capacity
     k4_shapes = [(arch, B, cap, Hq, Hkv, D, (1, 37, S + ENGINE_TOKENS, cap),
                   True) for arch, Hq, Hkv, D in ZOO_HEADS]
-    k4_shapes += k4_split_rows(k4_shapes, sms)
     k3, k4 = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
         for arch, Hq, Hkv, D in ZOO_HEADS:
             k3[(name, arch)] = k3_case(gen, dtype, B, S, Hq, Hkv, D, True,
                                        shape=arch)
-        for shape in k4_shapes:
+        for shape in k4_shapes + k4_split_rows(k4_shapes, sms, dtype):
             row = k4_case(gen, dtype, *shape, sms)
             if shape[-1]:
                 k4[(name, shape[0])] = row
@@ -3083,14 +3155,13 @@ def phase_vlm_audio_kernels():
                  (AUDIO, B, prompt + new, 20, 20, 64,
                   (prompt + 1, prompt + new // 2, prompt + new - 1,
                    prompt + new), True)]
-    k4_shapes += k4_split_rows(k4_shapes, sms)
     k3, k4 = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
         for tag, b, sq, sk, hq, hkv, d, causal in VA_K3:
             k3[(name, tag)] = k3_case(gen, dtype, b, sq, hq, hkv, d, causal,
                                       shape=tag, Sk=sk)
-        for shape in k4_shapes:
+        for shape in k4_shapes + k4_split_rows(k4_shapes, sms, dtype):
             row = k4_case(gen, dtype, *shape, sms)
             if shape[-1]:
                 k4[(name, shape[0])] = row

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file has a plain C interface. It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library and loaded through
 ``ctypes``; no PyTorch header is involved, so a build takes seconds. The
 library lands in ``build/repro_torch/`` at the root of the checkout (listed
-in ``.gitignore``), named by a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused within a checkout.
+in ``.gitignore``), named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused within a checkout.
 
 Nothing here runs at import time: a kernel is built on the first launch
 (``CudaLibrary.get``), or ahead of it by ``build_all``, which starts one
@@ -52,8 +53,10 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where ``csrc/<source>`` builds to: keyed by its content and flags."""
-    text = (CSRC_DIR / source).read_bytes()
+    """Where ``csrc/<source>`` builds to: keyed by its content, the shared
+    headers' and the flags."""
+    text = (CSRC_DIR / source).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:12]}.so"
 

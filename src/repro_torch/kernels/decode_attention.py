@@ -14,9 +14,12 @@ Two versions of the same function live here:
   (``csrc/decode_attention.cu``), flash-decoding: the cache rows of each
   (KV head, batch row) are split across blocks by ``split_plan``, each
   block serving all of the head's query heads with an online softmax over
-  its 128-row tiles, only the live rows read; a second kernel combines the
-  blocks' partial (m, l, acc). Unlike the TPU kernel it takes any capacity
-  S (the TPU kernel asserts S % blk_k == 0).
+  its tiles, only the live rows read; a second kernel combines the
+  blocks' partial (m, l, acc). ``decode_kernel`` names the split kernel:
+  bf16 at D = 64, 80 or 128 (groups of up to ``MMA_MAX_GROUP`` heads) runs
+  on the tensor cores (64-row tiles loaded by TMA), f32 and bf16 at D = 16
+  or 32 on FP32 FMAs (128-row tiles). Unlike the TPU kernel it takes any
+  capacity S (the TPU kernel asserts S % blk_k == 0).
 
 ``kernels.ops.decode_attention`` picks between them by the device of the
 tensors it is given.
@@ -39,11 +42,29 @@ import torch
 
 from repro_torch.kernels.build import CudaLibrary
 
-#: head dims the CUDA kernel is instantiated for
+#: head dims the CUDA kernels are instantiated for
 CUDA_HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: cache rows per tile of the CUDA kernel; a split is a whole number of tiles
-TILE_ROWS = 128
+#: the split kernels: name (its profiler name is ``name<...>``) -> (code of
+#: ``decode_attention_launch``, cache rows per tile)
+KERNELS = {"decode_split_kernel": (0, 128),
+           "decode_split_mma_kernel": (1, 64)}
+#: cache rows per tile of the FP32-FMA split kernel (the default of
+#: ``split_plan``); a split is a whole number of its kernel's tiles
+TILE_ROWS = KERNELS["decode_split_kernel"][1]
+#: cache rows per tile of the tensor-core split kernel
+MMA_TILE_ROWS = KERNELS["decode_split_mma_kernel"][1]
+#: head dims of the tensor-core kernel (128-byte swizzle rows, and D = 80's
+#: last 16 columns as 32-byte rows)
+MMA_HEAD_DIMS = (64, 80, 128)
+#: the most query heads per KV head the tensor-core kernel takes (four
+#: warps of 16 heads). It serves every bf16 group at its head dims, G = 1
+#: included: on the H100 it was faster than the FMA kernel at every bf16
+#: shape measured (GPT-2 Large's decode 0.0080 against 0.0109 ms on the
+#: device, Whisper's 0.0046 against 0.0066, Zamba2's D = 80 0.0360 against
+#: 0.0418; G = 3-48 by 1.3-4.5x), so the FMA kernel is not built for bf16
+#: at D = 64, 80, 128
+MMA_MAX_GROUP = 64
 #: the split plan aims at this many blocks per SM over the grid where S
 #: allows (in waves: an SM holds up to 4 at the engine's shapes); on the
 #: H100, 8 timed faster than 2 or 4 at GPT-2 Large's decode shape and
@@ -52,27 +73,54 @@ BLOCKS_PER_SM = 8
 
 _LIB = CudaLibrary("decode_attention.cu", {
     "decode_attention_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+       ctypes.c_void_p],
+    "decode_attention_smem_bytes": [ctypes.c_int] * 5,
 })
 
 
-def split_plan(S: int, B: int, Hkv: int, num_sms: int) -> Tuple[int, int]:
-    """How the CUDA kernel splits a capacity of ``S`` cache rows across
-    blocks: ``(splits, rows_per_split)``. Split i covers rows
-    ``[i * rows_per_split, min((i + 1) * rows_per_split, S))``; together
-    they cover [0, S) once, each is a whole number of ``TILE_ROWS`` rows
-    (but the last, which ends at S), and none is empty. The plan aims at
-    ``BLOCKS_PER_SM`` blocks per SM over the (splits, Hkv, B) grid and
-    takes one split when the B * Hkv blocks already reach it or S fits one
-    tile. It depends on the capacity, never on ``kv_len``, so the host
+def decode_kernel(dtype: torch.dtype, G: int, D: int) -> str:
+    """The split kernel that serves a call (a key of ``KERNELS``): the
+    tensor-core kernel for bf16 at a head dim in ``MMA_HEAD_DIMS``, the
+    FP32-FMA kernel for f32 and for bf16 at D = 16, 32. Raises for a bf16
+    group above ``MMA_MAX_GROUP`` at the tensor-core head dims, which no
+    kernel takes."""
+    if dtype == torch.bfloat16 and D in MMA_HEAD_DIMS:
+        if G > MMA_MAX_GROUP:
+            raise ValueError(f"decode_attention: no kernel takes {G} query "
+                             f"heads per KV head in bf16 at D = {D} (at "
+                             f"most {MMA_MAX_GROUP})")
+        return "decode_split_mma_kernel"
+    return "decode_split_kernel"
+
+
+def split_plan(S: int, B: int, Hkv: int, num_sms: int,
+               tile_rows: int = TILE_ROWS) -> Tuple[int, int]:
+    """How a split kernel with ``tile_rows``-row tiles splits a capacity of
+    ``S`` cache rows across blocks: ``(splits, rows_per_split)``. Split i
+    covers rows ``[i * rows_per_split, min((i + 1) * rows_per_split,
+    S))``; together they cover [0, S) once, each is a whole number of
+    tiles (but the last, which ends at S), and none is empty. The plan
+    aims at ``BLOCKS_PER_SM`` blocks per SM over the (splits, Hkv, B) grid
+    and takes one split when the B * Hkv blocks already reach it or S fits
+    one tile. It depends on the capacity, never on ``kv_len``, so the host
     never waits for the device to plan."""
     if S < 1 or B < 1 or Hkv < 1:
         raise ValueError(f"split_plan: S={S}, B={B}, Hkv={Hkv} must be >= 1")
-    tiles = -(-S // TILE_ROWS)
+    tiles = -(-S // tile_rows)
     want = -(-BLOCKS_PER_SM * num_sms // (B * Hkv))
     splits = max(1, min(tiles, want))
     per = -(-tiles // splits)            # tiles per split
-    return -(-tiles // per), per * TILE_ROWS
+    return -(-tiles // per), per * tile_rows
+
+
+def decode_plan(S: int, B: int, Hq: int, Hkv: int, D: int,
+                dtype: torch.dtype, num_sms: int) -> Tuple[str, int, int]:
+    """The launch of one call: ``(kernel, splits, rows_per_split)``, the
+    split kernel by ``decode_kernel`` and the split plan at its tile."""
+    kernel = decode_kernel(dtype, Hq // Hkv, D)
+    splits, rows = split_plan(S, B, Hkv, num_sms, KERNELS[kernel][1])
+    return kernel, splits, rows
 
 
 def decode_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
@@ -104,12 +152,13 @@ def decode_attention_cuda(q: torch.Tensor, cache_k: torch.Tensor,
     q (B, Hq, D), cache_k and cache_v (B, S, Hkv, D): contiguous, one dtype
     (float32 or bfloat16), 16-byte aligned, one CUDA device; kv_len (B,)
     contiguous int32 on the same device, read by the kernel (never synced to
-    the host). Head dim in ``CUDA_HEAD_DIMS``, Hq a multiple of Hkv. Raises
+    the host). Head dim in ``CUDA_HEAD_DIMS``, Hq a multiple of Hkv (in
+    bf16 at D = 64, 80, 128 at most ``MMA_MAX_GROUP`` times Hkv). Raises
     on anything else, and never copies: a strided cache slice is refused,
-    not silently made contiguous. Each call launches the split kernel on a
-    (splits, Hkv, B) grid (``split_plan``) and the combine kernel, with
-    the partials in scratch from ``torch.empty``; ``launches`` counts the
-    wrapper calls that launched them."""
+    not silently made contiguous. Each call launches the split kernel that
+    ``decode_plan`` names on a (splits, Hkv, B) grid and the combine kernel,
+    with the partials in scratch from ``torch.empty``; ``launches`` counts
+    the wrapper calls that launched them."""
     if q.dim() != 3 or cache_k.dim() != 4 or cache_v.dim() != 4:
         raise ValueError("decode_attention_cuda: q must be (B, Hq, D) and "
                          "the caches (B, S, Hkv, D)")
@@ -150,8 +199,8 @@ def decode_attention_cuda(q: torch.Tensor, cache_k: torch.Tensor,
         return out
     if S == 0:
         raise ValueError("decode_attention_cuda: the cache has no rows")
-    splits, rows = split_plan(S, B, Hkv, torch.cuda.get_device_properties(
-        q.device).multi_processor_count)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    kernel, splits, rows = decode_plan(S, B, Hq, Hkv, D, q.dtype, sms)
     part = torch.empty(splits * B * Hq * (D + 2), dtype=torch.float32,
                        device=q.device)
     lib = _LIB.get()
@@ -161,10 +210,19 @@ def decode_attention_cuda(q: torch.Tensor, cache_k: torch.Tensor,
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
             kv_len.data_ptr(), out.data_ptr(), part.data_ptr(), B, S, Hq,
             Hkv, D, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(D), splits, rows,
-            stream)
+            KERNELS[kernel][0], stream)
     _LIB.check(err, "decode_attention launch")
     decode_attention_cuda.launches += 1
     return out
 
 
 decode_attention_cuda.launches = 0
+
+
+def smem_bytes(kernel: str, dtype: torch.dtype, D: int, G: int,
+               rows_per_split: int) -> int:
+    """Dynamic shared memory of one split block (from the built library):
+    the FMA kernel at group ``G`` (0 when the group does not fit), the
+    tensor-core kernel with one tile per split or more."""
+    return int(_LIB.get().decode_attention_smem_bytes(
+        KERNELS[kernel][0], _DTYPE_CODE[dtype], D, G, rows_per_split))

@@ -10,12 +10,15 @@ Two versions of the same function live here:
 * ``flash_attention_plain`` — plain PyTorch on any device: the full
   softmax in f32 over grouped (never repeated) KV heads.
 * ``flash_attention_cuda`` — the hand-written CUDA kernels
-  (``csrc/flash_attention.cu``): online softmax over 64-key tiles, one
-  block per (64-query tile, head, batch). bf16 runs on the tensor cores
-  (``mma.sync`` with f32 accumulation, K/V tiles staged by ``cp.async``,
-  P rounded to bf16 for PV); f32 runs on FP32 FMAs. Unlike the TPU kernel
-  it takes any sequence length: the ragged tail is masked inside the
-  kernel.
+  (``csrc/flash_attention.cu``), an online softmax over key tiles with one
+  block per (query tile, head, batch). ``flash_kernel`` names the kernel
+  that serves a call: bf16 at D = 64, 80, 128 runs on Hopper's ``wgmma``
+  (a producer warpgroup keeps TMA loads of 128-key K/V tiles in flight,
+  one or two consumer warpgroups of 64 query rows each), bf16 at D = 16,
+  32 on ``mma.sync`` (64-query tiles, K/V staged by ``cp.async``); both
+  round P to bf16 for PV with f32 accumulation. f32 runs on FP32 FMAs.
+  Unlike the TPU kernel it takes any sequence length: the ragged tail is
+  masked inside the kernel.
 
 ``kernels.ops.flash_attention`` picks between them by the device of the
 tensors it is given.
@@ -24,19 +27,65 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels.build import CudaLibrary
 
-#: head dims the CUDA kernel is instantiated for
+#: head dims the CUDA kernels are instantiated for
 CUDA_HEAD_DIMS = (16, 32, 64, 80, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims of the bf16 wgmma kernel; the others run on mma.sync
+WGMMA_HEAD_DIMS = (64, 80, 128)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+#: the CUDA kernels: name (its profiler name is ``name<...>``) -> (code of
+#: ``flash_attention_launch``, query rows per block)
+KERNELS = {
+    "flash_f32_kernel": (0, 64),
+    "flash_bf16_mma_kernel": (1, 64),
+    "flash_bf16_wgmma_kernel": (2, 64),        # one consumer warpgroup
+    "flash_bf16_wgmma_kernel/2": (3, 128),     # two consumer warpgroups
+}
+#: at most this many query rows, the wgmma kernel runs one consumer
+#: warpgroup (64 rows a block: Whisper's Sq = 1 and 4, the main path's
+#: 8-token prompts), else two (128 rows a block)
+WGMMA_ONE_GROUP_ROWS = 64
 
 _LIB = CudaLibrary("flash_attention.cu", {
     "flash_attention_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "flash_attention_smem_bytes": [ctypes.c_int, ctypes.c_int],
 })
+
+
+def flash_kernel(dtype: torch.dtype, D: int, Sq: int) -> str:
+    """The CUDA kernel that serves a call (a key of ``KERNELS``): f32 on
+    FP32 FMAs; bf16 at a head dim in ``WGMMA_HEAD_DIMS`` on wgmma, with one
+    consumer warpgroup up to ``WGMMA_ONE_GROUP_ROWS`` query rows and two
+    above; bf16 at D = 16, 32 on mma.sync."""
+    if D not in CUDA_HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {D} not in "
+                         f"{CUDA_HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "flash_f32_kernel"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_cuda: dtype {dtype} not in "
+                         f"{_DTYPES}")
+    if D not in WGMMA_HEAD_DIMS:
+        return "flash_bf16_mma_kernel"
+    if Sq <= WGMMA_ONE_GROUP_ROWS:
+        return "flash_bf16_wgmma_kernel"
+    return "flash_bf16_wgmma_kernel/2"
+
+
+def flash_grid(B: int, Sq: int, Hq: int, kernel: str) -> Tuple[int, int, int]:
+    """The launch grid of ``kernel``: (Hq, query tiles, B), the heads of a
+    query tile adjacent in launch order (a KV group's tiles come from L2
+    to its heads). Block (x, y, z) serves head x, batch row z and query
+    tile ``tiles - 1 - y``: the heaviest causal tiles launch first."""
+    rows = KERNELS[kernel][1]
+    return Hq, -(-Sq // rows), B
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,8 +115,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q, k, v contiguous and 16-byte aligned, one dtype (float32 or
     bfloat16), one CUDA device, head dim in ``CUDA_HEAD_DIMS``, Hq a
-    multiple of Hkv. Raises on anything else. ``launches`` counts the
-    kernel launches this wrapper made."""
+    multiple of Hkv. Raises on anything else. ``flash_kernel`` picks the
+    kernel; ``launches`` counts the kernel launches this wrapper made."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention_cuda: q, k, v must be 4-D "
                          "(B, S, H, D)")
@@ -80,12 +129,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"flash_attention_cuda: Hq={Hq} is not a multiple "
                          f"of Hkv={Hkv}")
-    if D not in CUDA_HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} not in "
-                         f"{CUDA_HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_attention_cuda: dtype {q.dtype} not in "
-                         f"{tuple(_DTYPE_CODE)}")
+    kernel = flash_kernel(q.dtype, D, S)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention_cuda: {name} must be on the "
@@ -104,7 +148,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, Sk, Hq, Hkv, D, _DTYPE_CODE[q.dtype],
+            B, S, Sk, Hq, Hkv, D, KERNELS[kernel][0],
             1.0 / math.sqrt(D), int(bool(causal)), stream)
     _LIB.check(err, "flash_attention launch")
     flash_attention_cuda.launches += 1
@@ -112,3 +156,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_cuda.launches = 0
+
+
+def smem_bytes(kernel: str, D: int) -> int:
+    """Dynamic shared memory of one block of ``kernel`` at head dim ``D``
+    (from the built library; -1 for a pair it does not take)."""
+    return int(_LIB.get().flash_attention_smem_bytes(KERNELS[kernel][0], D))

@@ -18,7 +18,14 @@ PV. A test-local emulation of that arithmetic (exact bf16 q.k products
 summed in f32, the scale applied to the f32 scores, an online softmax in
 base 2 over 64-key tiles, P rounded to bf16, f32 PV) is held against the
 Pallas kernel and the oracle within the same 2e-2, at head dims 64 and
-80, G = 1 and 8, causal and not, ragged S and S up to 512.
+80, G = 1 and 8, causal and not, ragged S and S up to 512; and over the
+wgmma kernel's 128-key tiles at head dims 64, 80 and 128, up to
+granite-34b's G = 48.
+
+Which CUDA kernel serves a call (``flash_kernel``: wgmma at bf16 D = 64,
+80, 128, mma.sync at bf16 D = 16, 32, FMAs in f32) and the grid of query
+tiles each one launches (every query row of every head and batch row in
+one block, heaviest tiles first) are checked here too.
 """
 import math
 
@@ -219,6 +226,103 @@ def test_tensor_core_arithmetic_ragged_length(B, S, Hq, Hkv, D, causal):
     np.testing.assert_allclose(_np(got), _np(oracle), atol=TOL["bfloat16"])
 
 
+#: (B, S, Hq, Hkv, D) over the wgmma kernel's 128-key tiles: head dims 64,
+#: 80 and 128, G = 1, 7 and 48
+WGMMA_SHAPES = [
+    (1, 256, 48, 1, 128),
+    (1, 256, 4, 4, 80),
+    (1, 256, 7, 1, 64),
+]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", WGMMA_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_tile_arithmetic_matches_pallas_and_oracle(B, S, Hq, Hkv, D,
+                                                         causal):
+    """The wgmma kernel's arithmetic (that of the mma.sync kernel over
+    128-key tiles) against the Pallas kernel, the oracle and the plain
+    version, within the bf16 tolerance."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B, S, Hq, Hkv, D, "bfloat16",
+                                         seed=8)
+    got = _tensor_core_emulation(tq, tk, tv, causal=causal, tile=128)
+    assert torch.isfinite(got.float()).all()
+    pallas = jflash(jq, jk, jv, causal=causal, blk_q=128, blk_k=128,
+                    interpret=True)
+    oracle = jref.attention_ref(jq, jk, jv, causal=causal)
+    tol = TOL["bfloat16"]
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=tol)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=tol)
+    np.testing.assert_allclose(
+        _np(got), _np(tfa.flash_attention_plain(tq, tk, tv, causal=causal)),
+        atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", tfa.CUDA_HEAD_DIMS)
+@pytest.mark.parametrize("Sq", [1, 64, 65, 2048])
+def test_flash_kernel_choice(dtype, D, Sq):
+    """Every head dim maps to a kernel: f32 to the FMA kernel; bf16 at D =
+    64, 80, 128 to wgmma (one consumer warpgroup up to 64 query rows, two
+    above), at D = 16, 32 to mma.sync."""
+    kernel = tfa.flash_kernel(getattr(torch, dtype), D, Sq)
+    assert kernel in tfa.KERNELS
+    if dtype == "float32":
+        assert kernel == "flash_f32_kernel"
+    elif D in (64, 80, 128):
+        assert kernel == ("flash_bf16_wgmma_kernel" if Sq <= 64 else
+                          "flash_bf16_wgmma_kernel/2")
+    else:
+        assert kernel == "flash_bf16_mma_kernel"
+
+
+def test_flash_kernel_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_kernel(torch.bfloat16, 96, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        tfa.flash_kernel(torch.float16, 64, 16)
+
+
+@pytest.mark.parametrize("kernel", list(tfa.KERNELS))
+@pytest.mark.parametrize("B,Sq,Hq", [(1, 1, 1), (2, 64, 3), (1, 65, 2),
+                                     (4, 200, 5), (2, 2048, 4)])
+def test_flash_grid_covers_each_query_row_once(kernel, B, Sq, Hq):
+    """Each kernel's grid, read as the kernels read blockIdx (head x,
+    batch row z, query tile tiles - 1 - y), serves every (query row, head,
+    batch row) in exactly one block, the heaviest (last) query tile of
+    each head and batch row first."""
+    rows = tfa.KERNELS[kernel][1]
+    nx, ny, nz = tfa.flash_grid(B, Sq, Hq, kernel)
+    assert (nx, nz) == (Hq, B) and ny == -(-Sq // rows)
+    seen = np.zeros((B, Hq, Sq), np.int64)
+    first_tile = {}
+    for z in range(nz):
+        for y in range(ny):
+            for x in range(nx):
+                q0 = (ny - 1 - y) * rows
+                seen[z, x, q0:q0 + rows] += 1
+                first_tile.setdefault((z, x), q0)
+    assert (seen == 1).all()
+    assert set(first_tile.values()) == {(ny - 1) * rows}
+
+
+@pytest.mark.parametrize("Sq,Sk", [(64, 128), (128, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_wide_group_matches_pallas(Sq, Sk, dtype, causal):
+    """granite-34b's heads (G = 48, Hkv = 1, D = 128), Sq != Sk, causal
+    (keys and queries counted from 0) and not: the plain version against
+    the Pallas kernel in interpret mode and the oracle."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(1, Sq, Sk, 48, 1, 128, dtype,
+                                      seed=10)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    pallas = jflash(jq, jk, jv, causal=causal, blk_q=32, blk_k=32,
+                    interpret=True)
+    oracle = jref.attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=TOL[dtype])
+
+
 #: the engine's prefill shapes: GPT-2 Large 4 x 1024, TinyLlama 4 x 2048 at
 #: G = 8, Zamba2's shared block 4 x 2048 at D = 80
 ENGINE_PREFILL_SHAPES = [(4, 1024, 20, 20, 64), (4, 2048, 32, 4, 64),
@@ -232,8 +336,10 @@ def test_kernel_matches_plain_on_h100():
             torch.cuda.get_device_capability() != (9, 0):
         pytest.skip("needs an sm_90 GPU (H100): the CUDA kernel has no "
                     "CPU mode")
-    for B, S, Hq, Hkv, D in SHAPES + MMA_SHAPES + ENGINE_PREFILL_SHAPES + [
-            (1, 200, 20, 20, 64), (2, 200, 8, 1, 80), (1, 77, 8, 1, 64)]:
+    for B, S, Hq, Hkv, D in SHAPES + MMA_SHAPES + WGMMA_SHAPES + \
+            ENGINE_PREFILL_SHAPES + [(1, 200, 20, 20, 64), (2, 200, 8, 1, 80),
+                                     (1, 77, 8, 1, 64),
+                                     (4, 2048, 48, 1, 128)]:
         for dtype in ("float32", "bfloat16"):
             _, tx = _inputs(B, S, Hq, Hkv, D, dtype)
             q, k, v = (t.cuda() for t in tx)

@@ -27,12 +27,18 @@ The CUDA kernel runs only on an H100 (the ``h100`` test; skipped
 elsewhere); ``chip_smoke.py`` runs the same check at the engine's shapes.
 
 The CUDA kernel splits the cache rows across blocks (flash-decoding) by
-``split_plan`` and combines the blocks' partial (m, l, acc). The plan is
-checked here (every row in exactly one split, whole 128-row tiles, one
-split at small S), and a test-local torch emulation of the split and
-combine arithmetic over the plan's ranges is held against the Pallas
-kernel and the oracle within 2e-4 (f32) / 2e-2 (bf16), with empty splits,
-kv_len = 1, kv_len on a split boundary and kv_len = S.
+``split_plan`` and combines the blocks' partial (m, l, acc). Its split
+kernel is named by ``decode_kernel``: bf16 at D = 64, 80 or 128 (groups of
+up to ``MMA_MAX_GROUP`` query heads) runs on the tensor cores in 64-row
+tiles, f32 and bf16 at D = 16, 32 on FP32 FMAs in 128-row tiles. The plans are checked here
+(every row in exactly one split, whole tiles of the kernel, one split at
+small S, at least one block per SM for granite-34b's G = 48), and a
+test-local torch emulation of each kernel's split and combine arithmetic
+over its plan's ranges (the tensor-core kernel's: exact bf16 products
+summed in f32, the scale in f32 before exp2, p rounded to bf16 for PV) is
+held against the Pallas kernel and the oracle within 2e-4 (f32) / 2e-2
+(bf16), with empty splits, kv_len = 1, kv_len on a split boundary and
+kv_len = S, at G = 4 and at granite-34b's G = 48 (Hkv = 1, D = 128).
 """
 import dataclasses
 import math
@@ -175,32 +181,117 @@ def test_split_plan_covers_rows_once_in_whole_tiles(S, B, Hkv, num_sms):
 
 
 def test_split_plan_at_the_engine_shapes():
-    """GPT-2 Large, TinyLlama and Zamba2 decode at B = 4 split as far as
-    the plan's blocks per SM or their tiles allow; small capacities take
-    one split."""
-    # (splits, rows per split): 720, 272 and 1152 blocks on the H100's
-    # 132 SMs
+    """The engine's bf16 decode at B = 4, by the kernel that serves it:
+    GPT-2 Large (G = 1), TinyLlama (G = 8), Zamba2 (G = 1, D = 80) and
+    granite-34b (G = 48) on the tensor-core kernel, split as far as the
+    plan's blocks per SM or their 64-row tiles allow; a small capacity
+    takes few splits of whole tiles."""
+    # (kernel, splits, rows per split): 720, 544, 1152 and 136 blocks on
+    # the H100's 132 SMs
     sms = 132
+    bf16 = torch.bfloat16
+    assert tda.decode_plan(1120, 4, 20, 20, 64, bf16, sms) == \
+        ("decode_split_mma_kernel", 9, 128)
+    assert tda.decode_plan(2144, 4, 32, 4, 64, bf16, sms) == \
+        ("decode_split_mma_kernel", 34, 64)
+    assert tda.decode_plan(2144, 4, 32, 32, 80, bf16, sms) == \
+        ("decode_split_mma_kernel", 9, 256)
+    assert tda.decode_plan(2144, 4, 48, 1, 128, bf16, sms) == \
+        ("decode_split_mma_kernel", 34, 64)
+    assert tda.decode_plan(104, 4, 20, 20, 64, bf16, sms) == \
+        ("decode_split_mma_kernel", 2, 64)
+    # the FMA kernel's plans, as before, at the f32 engine's shapes
     assert tda.split_plan(1120, 4, 20, sms) == (9, 128)
-    assert tda.split_plan(2144, 4, 4, sms) == (17, 128)
-    assert tda.split_plan(2144, 4, 32, sms) == (9, 256)
     assert tda.split_plan(104, 4, 20, sms) == (1, 128)
     assert tda.split_plan(128, 1, 1, sms) == (1, 128)
+    assert tda.split_plan(2144, 4, 4, sms) == (17, 128)
+    assert tda.split_plan(2144, 4, 32, sms) == (9, 256)
+    assert tda.decode_plan(2144, 4, 32, 4, 64, torch.float32, sms) == \
+        ("decode_split_kernel", 17, 128)
     with pytest.raises(ValueError):
         tda.split_plan(0, 4, 4, sms)
 
 
+def test_split_plan_fills_the_card_at_granite():
+    """granite-34b's decode (capacity 2144, B = 4, Hkv = 1, G = 48, D =
+    128, bf16) runs at least one block per SM of the H100's 132 (the
+    128-row FMA plan gave 17 splits, 68 blocks)."""
+    kernel, splits, rows = tda.decode_plan(2144, 4, 48, 1, 128,
+                                           torch.bfloat16, 132)
+    assert kernel == "decode_split_mma_kernel"
+    assert splits * 1 * 4 >= 132
+    assert tda.split_plan(2144, 4, 1, 132) == (17, 128)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", tda.CUDA_HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8, 9, 16, 17, 48, 64, 65])
+def test_decode_kernel_choice(dtype, D, G):
+    """Every head dim and group maps to one split kernel: the tensor-core
+    kernel exactly for bf16 at D = 64, 80 or 128 and G <= 64, the FMA
+    kernel for f32 and bf16 at D = 16, 32; a bf16 group above 64 at the
+    tensor-core head dims is refused (no kernel takes it)."""
+    mma_dim = dtype == "bfloat16" and D in (64, 80, 128)
+    if mma_dim and G > 64:
+        with pytest.raises(ValueError, match="no kernel takes"):
+            tda.decode_kernel(getattr(torch, dtype), G, D)
+        return
+    kernel = tda.decode_kernel(getattr(torch, dtype), G, D)
+    assert kernel == ("decode_split_mma_kernel" if mma_dim else
+                      "decode_split_kernel")
+    assert kernel in tda.KERNELS
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_decode_cuda_refuses_bf16_groups_above_the_mma_kernel(D):
+    """The wrapper's plan refuses 65 query heads per KV head in bf16 at the
+    tensor-core head dims, before any launch, and takes 64."""
+    with pytest.raises(ValueError, match="no kernel takes 65"):
+        tda.decode_plan(2144, 4, 65, 1, D, torch.bfloat16, 132)
+    assert tda.decode_plan(2144, 4, 64, 1, D, torch.bfloat16, 132)[0] == \
+        "decode_split_mma_kernel"
+    assert tda.decode_plan(2144, 4, 65, 1, D, torch.float32, 132)[0] == \
+        "decode_split_kernel"
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 300, 2144, 32768])
+@pytest.mark.parametrize("B,Hkv", [(1, 1), (4, 1), (4, 4), (4, 8), (8, 64)])
+def test_split_plan_in_whole_mma_tiles(S, B, Hkv):
+    """The tensor-core kernel's plans: each row in one split of whole
+    64-row tiles (the last ends at S), none empty."""
+    splits, rows = tda.split_plan(S, B, Hkv, 132, tda.MMA_TILE_ROWS)
+    assert rows % tda.MMA_TILE_ROWS == 0
+    assert 1 <= splits <= -(-S // tda.MMA_TILE_ROWS)
+    assert (splits - 1) * rows < S <= splits * rows
+
+
+LOG2E = 1.4426950408889634
+
+
 def _split_emulation(q, cache_k, cache_v, kv_len, num_sms=132):
-    """K4's arithmetic on the card, in torch: per split of ``split_plan``,
-    an online softmax over the split's live rows in 128-row tiles (q
-    scaled by 1/sqrt(D) in f32 first), a partial (m, l, acc) per split
-    (m = -inf, l = 0, acc = 0 for a split with no live row), then the
-    combine: weights exp(m_i - M), acc / max(l, 1e-30) in q's dtype."""
+    """K4's arithmetic on the card, in torch, for the split kernel and plan
+    that ``decode_plan`` names: per split, an online softmax over the
+    split's live rows in the kernel's tiles, a partial (m, l, acc) per
+    split (m = -inf, l = 0, acc = 0 for a split with no live row), then the
+    combine: weights exp(m_i - M), acc / max(l, 1e-30) in q's dtype. The
+    FMA kernel scales q by 1/sqrt(D) in f32 and takes exp. The tensor-core
+    kernel sums the exact bf16 products in f32, takes log2(e)/sqrt(D) in
+    f32 on the scores before exp2 (m in log2 units, written out as m * ln
+    2), and rounds p to bf16 for PV while l sums the f32 p; the rows it
+    masks in a partial last tile (before the split, or TMA's zeros before
+    row 0) get p = 0 exactly, so only the live rows are summed here."""
     B, Hq, D = q.shape
     S, Hkv = cache_k.shape[1], cache_k.shape[2]
     G = Hq // Hkv
-    splits, rows = tda.split_plan(S, B, Hkv, num_sms)
-    qg = q.float().reshape(B, Hkv, G, D) * (1.0 / math.sqrt(D))
+    kernel, splits, rows = tda.decode_plan(S, B, Hq, Hkv, D, q.dtype,
+                                           num_sms)
+    tile = tda.KERNELS[kernel][1]
+    mma = kernel == "decode_split_mma_kernel"
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    scale_log2 = scale * torch.tensor(LOG2E, dtype=torch.float32)
+    qg = q.float().reshape(B, Hkv, G, D)
+    if not mma:
+        qg = qg * scale
     kf, vf = cache_k.float(), cache_v.float()
     pm = torch.full((splits, B, Hkv, G), float("-inf"))
     pl = torch.zeros((splits, B, Hkv, G))
@@ -214,18 +305,27 @@ def _split_emulation(q, cache_k, cache_v, kv_len, num_sms=132):
             m = torch.full((Hkv, G), float("-inf"))
             l = torch.zeros((Hkv, G))
             acc = torch.zeros((Hkv, G, D))
-            for k0 in range(r0, r1, tda.TILE_ROWS):
-                k1 = min(k0 + tda.TILE_ROWS, r1)
+            for k0 in range(r0, r1, tile):
+                k1 = min(k0 + tile, r1)
                 sc = torch.einsum("hgd,khd->hgk", qg[b], kf[b, k0:k1])
+                if mma:
+                    sc = sc * scale_log2
                 m_new = torch.maximum(m, sc.amax(-1))
-                alpha = torch.where(m == float("-inf"), torch.zeros(()),
-                                    torch.exp(m - m_new))
-                p = torch.exp(sc - m_new[..., None])
+                if mma:
+                    alpha = torch.where(m == float("-inf"), torch.zeros(()),
+                                        torch.exp2(m - m_new))
+                    p = torch.exp2(sc - m_new[..., None])
+                    pv = p.to(torch.bfloat16).float()
+                else:
+                    alpha = torch.where(m == float("-inf"), torch.zeros(()),
+                                        torch.exp(m - m_new))
+                    p = pv = torch.exp(sc - m_new[..., None])
                 l = l * alpha + p.sum(-1)
                 acc = acc * alpha[..., None] + torch.einsum(
-                    "hgk,khd->hgd", p, vf[b, k0:k1])
+                    "hgk,khd->hgd", pv, vf[b, k0:k1])
                 m = m_new
-            pm[i, b], pl[i, b], pa[i, b] = m, l, acc
+            pm[i, b] = m * math.log(2.0) if mma else m
+            pl[i, b], pa[i, b] = l, acc
     M = pm.amax(0)
     live = pm != float("-inf")
     w = torch.where(live, torch.exp(pm - torch.where(
@@ -248,7 +348,7 @@ def test_split_combine_matches_pallas_and_oracle(S, num_sms, D, dtype):
     B, Hq, Hkv = 4, 8, 2
     (jq, jk, jv, _), (tq, tk, tv, _) = _inputs(B, S, Hq, Hkv, D, dtype,
                                                seed=6)
-    splits, rows = tda.split_plan(S, B, Hkv, num_sms)
+    _, splits, rows = tda.decode_plan(S, B, Hq, Hkv, D, tq.dtype, num_sms)
     assert splits > 1 and (num_sms > 2 or rows == 4 * tda.TILE_ROWS)
     lens = np.array([1, rows, S, S // 2 + 3], np.int32)
     got, _ = _split_emulation(tq, tk, tv, torch.from_numpy(lens), num_sms)
@@ -260,15 +360,40 @@ def test_split_combine_matches_pallas_and_oracle(S, num_sms, D, dtype):
     np.testing.assert_allclose(_np(got), _np(oracle), atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("S,lens", [(256, (1, 64, 256, 131)),
+                                    (512, (512, 128, 65, 2))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_combine_wide_group_matches_pallas_and_oracle(S, lens, dtype):
+    """granite-34b's head shape (G = 48, Hkv = 1, D = 128) at a small S:
+    bf16 on the tensor-core kernel's plan (64-row splits: kv_len = 1, on a
+    split boundary, one row past one, = S, in the middle), f32 on the FMA
+    kernel's."""
+    B, Hq, Hkv, D = 4, 48, 1, 128
+    (jq, jk, jv, _), (tq, tk, tv, _) = _inputs(B, S, Hq, Hkv, D, dtype,
+                                               seed=9)
+    kernel, splits, _ = tda.decode_plan(S, B, Hq, Hkv, D, tq.dtype, 132)
+    assert splits > 1
+    assert (kernel == "decode_split_mma_kernel") == (dtype == "bfloat16")
+    got, _ = _split_emulation(tq, tk, tv,
+                              torch.tensor(lens, dtype=torch.int32))
+    assert torch.isfinite(got.float()).all()
+    jl = jnp.asarray(np.array(lens, np.int32))
+    pallas = jdecode(jq, jk, jv, jl, blk_k=128, interpret=True)
+    oracle = jref.decode_attention_ref(jq, jk, jv, jl)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_split_combine_ragged_capacity(dtype):
     """S = 300 (a last split of 44 rows, which the Pallas kernel cannot
-    take), against the oracle and the plain version."""
+    take), against the oracle and the plain version: 3 splits of 128 rows
+    on the FMA kernel (f32), 5 of 64 on the tensor-core kernel (bf16)."""
     (jq, jk, jv, _), (tq, tk, tv, _) = _inputs(4, 300, 8, 1, 64, dtype,
                                                seed=7)
     lens = np.array([1, 128, 300, 257], np.int32)
     got, splits = _split_emulation(tq, tk, tv, torch.from_numpy(lens))
-    assert splits == 3
+    assert splits == {"float32": 3, "bfloat16": 5}[dtype]
     want = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens))
     np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
     plain = tda.decode_attention_plain(tq, tk, tv, torch.from_numpy(lens))
@@ -299,10 +424,12 @@ def test_decode_kernel_matches_plain_on_h100():
                 <= TOL[dtype]
     # GPT-2 Large, TinyLlama, Zamba2 at B = 4, and a ragged D = 128
     for B, S, Hq, Hkv, D in [(4, 1120, 20, 20, 64), (4, 2144, 32, 4, 64),
-                             (4, 2144, 32, 32, 80), (4, 1000, 16, 2, 128)]:
-        _, rows = tda.split_plan(S, B, Hkv, torch.cuda.get_device_properties(
-            0).multi_processor_count)
+                             (4, 2144, 32, 32, 80), (4, 1000, 16, 2, 128),
+                             (4, 2144, 48, 1, 128)]:
         for dtype in ("float32", "bfloat16"):
+            _, _, rows = tda.decode_plan(
+                S, B, Hq, Hkv, D, getattr(torch, dtype),
+                torch.cuda.get_device_properties(0).multi_processor_count)
             _, tx = _inputs(B, S, Hq, Hkv, D, dtype, seed=8)
             q, k, v, _ = (t.cuda() for t in tx)
             lens = torch.tensor([1, rows, S, S // 2 + 3], dtype=torch.int32,
