@@ -354,6 +354,15 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled_ops(prof):
+    """The profile's averaged events less the ``record_function`` ranges
+    (the port's wall spans open them while a profiler records), whose
+    device-side copies would read as kernels and whose host side would
+    claim the launches of the hand-written kernels."""
+    return [e for e in prof.key_averages()
+            if not getattr(e, "is_user_annotation", False)]
+
+
 def name_matches(key: str, kernel) -> bool:
     """Whether a profiler kernel name contains ``kernel`` (a substring, or
     any of a tuple of them); None matches every name."""
@@ -378,7 +387,7 @@ def device_times(fn, iters: int = 20) -> list:
             fn()
         torch.cuda.synchronize()
     out = []
-    for e in prof.key_averages():
+    for e in profiled_ops(prof):
         if e.device_type == DeviceType.CUDA:
             t = getattr(e, "self_device_time_total", None)
             if t is None:
@@ -1862,7 +1871,7 @@ def window_device_work(fn, marker: str, iters: int = 200):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    calls = {e.key: e.count for e in prof.key_averages()
+    calls = {e.key: e.count for e in profiled_ops(prof)
              if e.device_type == DeviceType.CUDA}
     n = sum(c for k, c in calls.items() if marker in k)
     if not n:
@@ -1940,7 +1949,7 @@ def phase_profile(cfg, params, key: str = "profile"):
                              ProfilerActivity.CUDA]) as prof:
         _, done, wall, _ = serve(cfg, params, workload(cfg.vocab_size)[:2])
     kernels, ops = {}, {}       # name -> (device ms, calls)
-    for e in prof.key_averages():
+    for e in profiled_ops(prof):
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0)
@@ -2979,7 +2988,7 @@ def profile_window(fn):
         sync()
         wall = time.perf_counter() - t0
     kernels, ops_ms = {}, {}
-    for e in prof.key_averages():
+    for e in profiled_ops(prof):
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0)

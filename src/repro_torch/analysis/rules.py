@@ -519,6 +519,17 @@ class VersionBumpRule(Rule):
 
 _SPAN_METHODS = {"span", "begin", "end", "event", "add"}
 _TRACER_NAMES = {"tr", "tracer"}
+#: the wall-clock slot's accessor (``obs.trace.wall``): its result is a
+#: tracer receiver too
+_WALL_SLOT = "wall"
+
+
+def _is_wall_call(node: ast.AST) -> bool:
+    if not isinstance(node, ast.Call) or node.args or node.keywords:
+        return False
+    f = node.func
+    return (isinstance(f, ast.Name) and f.id == _WALL_SLOT) or \
+        (isinstance(f, ast.Attribute) and f.attr == _WALL_SLOT)
 
 
 @dataclass
@@ -530,6 +541,10 @@ class _GuardScope:
 
 class TracerGuardRule(Rule):
     """Span creation outside ``obs/`` must be behind ``tracer.enabled``.
+
+    Receivers are ``tracer`` attributes, the names ``tr`` and ``tracer``,
+    names assigned from either, and the wall slot: ``wall()`` and names
+    assigned from it (``wtr = wall()``).
 
     The tracing plane keeps the disabled-tracer hot path at ~zero
     cost by guarding every span/event call site (``if tracer.enabled:``
@@ -575,8 +590,9 @@ class TracerGuardRule(Rule):
         if not names:
             return
         v = node.value
-        if any(isinstance(n, ast.Attribute) and n.attr == "tracer"
-               for n in ast.walk(v)) and not isinstance(v, ast.Call):
+        if (any(isinstance(n, ast.Attribute) and n.attr == "tracer"
+                for n in ast.walk(v)) and not isinstance(v, ast.Call)) \
+                or _is_wall_call(v):
             sc.tracer_aliases.update(names)
         if any(isinstance(n, ast.Attribute) and n.attr == "enabled"
                for n in ast.walk(v)) and not isinstance(v, ast.Call):
@@ -586,6 +602,8 @@ class TracerGuardRule(Rule):
 
     def _is_tracer_receiver(self, recv: ast.AST) -> bool:
         if isinstance(recv, ast.Attribute) and recv.attr == "tracer":
+            return True
+        if _is_wall_call(recv):
             return True
         if isinstance(recv, ast.Name):
             return (recv.id in self._scope.tracer_aliases

@@ -41,6 +41,7 @@ from repro_torch.kernels.tropical_route import (INF, backtrack,
                                                 tropical_route_plain,
                                                 upload_window_state,
                                                 window_to_host)
+from repro_torch.obs.trace import NOOP_SPAN, wall
 
 #: the plain single-best DP (one masked min/argmin per boundary)
 layered_dp = tropical_route_plain
@@ -119,8 +120,11 @@ def route_batched(table: PeerTable, total_layers: int, cfg: GTRACConfig,
         dist, pred = layered_dp(starts, ends, costs,
                                 total_layers=total_layers)
         hops = backtrack(starts, pred, total_layers=total_layers,
-                         k_max=k_max).cpu().numpy()
-        cost = dist[:, total_layers].cpu().numpy()
+                         k_max=k_max)
+        tr = wall()
+        with tr.span("route.readback") if tr.enabled else NOOP_SPAN:
+            hops = hops.cpu().numpy()
+            cost = dist[:, total_layers].cpu().numpy()
     ids = np.where(hops >= 0, table.peer_ids[np.clip(hops, 0, None)], -1)
     return ids, cost
 
@@ -160,4 +164,6 @@ def route_batched_kbest(table: PeerTable, total_layers: int,
         starts, ends, costs, total_layers=total_layers, k_best=k_best)
     hops = backtrack_kbest(starts, pedge, prank, total_layers=total_layers,
                            k_max=k_max)
-    return hops.cpu().numpy(), distK[:, total_layers, :].cpu().numpy()
+    tr = wall()
+    with tr.span("route.readback") if tr.enabled else NOOP_SPAN:
+        return hops.cpu().numpy(), distK[:, total_layers, :].cpu().numpy()

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import CudaLibrary
+from repro_torch.obs.trace import NOOP_SPAN, wall
 
 INF = 3.0e38   # f32-rounded where it meets a tensor, as jnp.float32(3e38)
 
@@ -521,7 +522,8 @@ def upload_window_state(latency, trust, alive, tau, device):
 def window_to_host(hops: torch.Tensor, costs: torch.Tensor):
     """(hops, costs) of a window entry as numpy arrays. A CUDA entry wrote
     both into one buffer, costs right after hops, so they come back in ONE
-    synchronising copy; CPU tensors are read in place."""
+    synchronising copy (wall span ``route.readback``); CPU tensors are
+    read in place."""
     if hops.device.type == "cpu":
         return hops.numpy(), costs.numpy()
     n = hops.numel()
@@ -530,7 +532,9 @@ def window_to_host(hops: torch.Tensor, costs: torch.Tensor):
             costs.data_ptr() != hops.data_ptr() + 4 * n:
         raise ValueError("window_to_host: costs must follow hops in one "
                          "buffer, as the CUDA window entries write them")
-    flat = torch.as_strided(hops, (n + costs.numel(),), (1,)).cpu()
+    tr = wall()
+    with tr.span("route.readback") if tr.enabled else NOOP_SPAN:
+        flat = torch.as_strided(hops, (n + costs.numel(),), (1,)).cpu()
     return (flat[:n].numpy().reshape(hops.shape),
             flat[n:].view(torch.float32).numpy().reshape(costs.shape))
 

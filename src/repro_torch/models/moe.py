@@ -56,6 +56,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (constrain, per_shard, reshape,
                                                take_rows)
 from repro_torch.models.common import Params, dense_init, pdtype
+from repro_torch.obs.trace import NOOP_SPAN, wall
 
 
 def moe_capacity(cfg: ModelConfig, num_tokens: int) -> int:
@@ -134,7 +135,11 @@ def apply_moe(cfg: ModelConfig, p: Params, x, return_aux: bool = False):
     sort and the counts over every token of the batch, which decide the
     drops) runs whole on every rank (``sharding.per_shard`` with no
     dimension sharded: T·k ids), and the buffer and the combine gather
-    their rows by ``sharding.take_rows``."""
+    their rows by ``sharding.take_rows``. Wall spans (``obs.trace.wall``)
+    ``moe.route`` (top-k, the sort of each token's choices, the gate
+    gather), ``moe.dispatch`` (the plan and the buffer's gather),
+    ``moe.experts`` (the products and the activation) and
+    ``moe.combine``."""
     B, S, d = x.shape
     T = B * S
     k = cfg.experts_per_token
@@ -143,32 +148,38 @@ def apply_moe(cfg: ModelConfig, p: Params, x, return_aux: bool = False):
     dt = x.dtype
     xf = x.reshape(T, d)
 
-    gates, idx, probs = route_topk(cfg, p, xf)
-    # each token's k choices in ascending expert order: the combine's order
-    idx_asc, perm = torch.sort(idx, dim=-1)
-    flat_gate = torch.gather(gates, 1, perm).reshape(T * k)
-    plan = per_shard(lambda i: _dispatch_plan(i, E, C), (idx_asc,),
-                     ((None, None),), ((None, None),) * 2 + ((None,),) * 2)
-    src, filled, slot, keep = plan or _dispatch_plan(idx_asc, E, C)
+    tr = wall()
+    with tr.span("moe.route") if tr.enabled else NOOP_SPAN:
+        gates, idx, probs = route_topk(cfg, p, xf)
+        # each token's k choices in ascending expert order: the combine's order
+        idx_asc, perm = torch.sort(idx, dim=-1)
+        flat_gate = torch.gather(gates, 1, perm).reshape(T * k)
+    with tr.span("moe.dispatch") if tr.enabled else NOOP_SPAN:
+        plan = per_shard(lambda i: _dispatch_plan(i, E, C), (idx_asc,),
+                         ((None, None),),
+                         ((None, None),) * 2 + ((None,),) * 2)
+        src, filled, slot, keep = plan or _dispatch_plan(idx_asc, E, C)
+        buf = torch.where(filled[..., None], take_rows(xf, src), 0.0)
+        buf = constrain(buf, "expert", None, None)
 
-    buf = torch.where(filled[..., None], take_rows(xf, src), 0.0)
-    buf = constrain(buf, "expert", None, None)
+    with tr.span("moe.experts") if tr.enabled else NOOP_SPAN:
+        h = constrain(torch.bmm(buf, p["wi"].to(dt)), "expert", None, None)
+        if cfg.act == "silu":
+            h = F.silu(h) * torch.bmm(buf, p["wg"].to(dt))
+        else:
+            h = F.gelu(h, approximate="tanh")
+        out = constrain(torch.bmm(h, p["wo"].to(dt)),        # (E, C, d)
+                        "expert", None, None)
 
-    h = constrain(torch.bmm(buf, p["wi"].to(dt)), "expert", None, None)
-    if cfg.act == "silu":
-        h = F.silu(h) * torch.bmm(buf, p["wg"].to(dt))
-    else:
-        h = F.gelu(h, approximate="tanh")
-    out = constrain(torch.bmm(h, p["wo"].to(dt)),        # (E, C, d)
-                    "expert", None, None)
-
-    w = (flat_gate * keep).to(dt)[:, None]
-    rows = constrain(take_rows(out.reshape(E * C, d), slot), "batch", None)
-    rows = reshape(rows * w, T, k, d)
-    y = rows[:, 0]
-    for j in range(1, k):
-        y = y + rows[:, j]
-    y = constrain(reshape(y, B, S, d), "batch", "seq", "embed")
+    with tr.span("moe.combine") if tr.enabled else NOOP_SPAN:
+        w = (flat_gate * keep).to(dt)[:, None]
+        rows = constrain(take_rows(out.reshape(E * C, d), slot), "batch",
+                         None)
+        rows = reshape(rows * w, T, k, d)
+        y = rows[:, 0]
+        for j in range(1, k):
+            y = y + rows[:, j]
+        y = constrain(reshape(y, B, S, d), "batch", "seq", "embed")
     if return_aux:
         return y, load_balance_loss(cfg, probs, idx)
     return y

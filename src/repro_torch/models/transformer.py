@@ -46,6 +46,7 @@ from repro_torch.models.common import (Params, adtype, apply_norm,
                                        logits_head, remat)
 from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.rope import apply_rotary, positional_angles
+from repro_torch.obs.trace import NOOP_SPAN, wall
 
 
 #: families and position types the decoder serves
@@ -199,17 +200,22 @@ def _ffn(cfg: ModelConfig, p: Params, x):
 
 
 def block_forward(cfg: ModelConfig, p: Params, x, angles=None):
-    """Full-sequence (prefill) block. Returns (x, (k, v, aux))."""
-    h = apply_norm(cfg, p["norm1"], x)
-    q, k, v = attn.qkv_proj(cfg, p["attn"], h)
-    if angles is not None:
-        q = apply_rotary(q, angles)
-        k = apply_rotary(k, angles)
-    o = attn.attend(cfg, q, k, v, causal=True, window=cfg.sliding_window)
-    x = x + attn.out_proj(cfg, p["attn"], o)
-    h = apply_norm(cfg, p["norm2"], x)
-    y, aux = _ffn(cfg, p["ffn"], h)
-    return x + y, (k, v, aux)
+    """Full-sequence (prefill) block. Returns (x, (k, v, aux)). Wall
+    spans ``model.attn`` and ``model.ffn`` (``obs.trace.wall``)."""
+    tr = wall()
+    with tr.span("model.attn") if tr.enabled else NOOP_SPAN:
+        h = apply_norm(cfg, p["norm1"], x)
+        q, k, v = attn.qkv_proj(cfg, p["attn"], h)
+        if angles is not None:
+            q = apply_rotary(q, angles)
+            k = apply_rotary(k, angles)
+        o = attn.attend(cfg, q, k, v, causal=True, window=cfg.sliding_window)
+        x = x + attn.out_proj(cfg, p["attn"], o)
+    with tr.span("model.ffn") if tr.enabled else NOOP_SPAN:
+        h = apply_norm(cfg, p["norm2"], x)
+        y, aux = _ffn(cfg, p["ffn"], h)
+        x = x + y
+    return x, (k, v, aux)
 
 
 def block_decode(cfg: ModelConfig, p: Params, x, angles, cache_k, cache_v,
@@ -217,20 +223,24 @@ def block_decode(cfg: ModelConfig, p: Params, x, angles, cache_k, cache_v,
     """One-token block. x (B,1,d); caches (B,Smax,Hkv,D), written in place
     at the host int ``index``. ``kv_len`` — (B,) int32 tensor on the
     device equal to ``index + 1``, built once per step for every layer.
-    Returns (x, cache_k, cache_v)."""
-    h = apply_norm(cfg, p["norm1"], x)
-    q, k, v = attn.qkv_proj(cfg, p["attn"], h)
-    if angles is not None:
-        q = apply_rotary(q, angles)
-        k = apply_rotary(k, angles)
-    cache_k, cache_v = attn.cache_update(cache_k, cache_v, k, v, index,
-                                         masked=cfg.decode_masked_write)
-    o = attn.decode_attend(cfg, q, cache_k, cache_v, kv_len,
-                           window=cfg.sliding_window)
-    x = x + attn.out_proj(cfg, p["attn"], o)
-    h = apply_norm(cfg, p["norm2"], x)
-    y, _ = _ffn(cfg, p["ffn"], h)
-    return x + y, cache_k, cache_v
+    Returns (x, cache_k, cache_v). Wall spans as ``block_forward``'s."""
+    tr = wall()
+    with tr.span("model.attn") if tr.enabled else NOOP_SPAN:
+        h = apply_norm(cfg, p["norm1"], x)
+        q, k, v = attn.qkv_proj(cfg, p["attn"], h)
+        if angles is not None:
+            q = apply_rotary(q, angles)
+            k = apply_rotary(k, angles)
+        cache_k, cache_v = attn.cache_update(cache_k, cache_v, k, v, index,
+                                             masked=cfg.decode_masked_write)
+        o = attn.decode_attend(cfg, q, cache_k, cache_v, kv_len,
+                               window=cfg.sliding_window)
+        x = x + attn.out_proj(cfg, p["attn"], o)
+    with tr.span("model.ffn") if tr.enabled else NOOP_SPAN:
+        h = apply_norm(cfg, p["norm2"], x)
+        y, _ = _ffn(cfg, p["ffn"], h)
+        x = x + y
+    return x, cache_k, cache_v
 
 
 def _angles(cfg: ModelConfig, positions):
@@ -258,8 +268,10 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
     require_decoder(cfg)
     learned = cfg.pos_type == "learned" and positions is not None and \
         positions.dim() == 2
-    x = embed_tokens(cfg, params["embed"], tokens,
-                     positions if learned else None)
+    tr = wall()
+    with tr.span("model.embed") if tr.enabled else NOOP_SPAN:
+        x = embed_tokens(cfg, params["embed"], tokens,
+                         positions if learned else None)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
@@ -351,7 +363,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens, positions=None,
         cache["k"][:, :, :S] = k
         cache["v"][:, :, :S] = v
         cache["index"] = S
-    logits = logits_head(cfg, params["embed"], x[:, -1:, :])
+    tr = wall()
+    with tr.span("model.head") if tr.enabled else NOOP_SPAN:
+        logits = logits_head(cfg, params["embed"], x[:, -1:, :])
     return logits, cache
 
 
@@ -367,9 +381,11 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache,
     index = int(cache["index"])
     B = token.shape[0]
     dev = token.device
-    x = embed_tokens(cfg, params["embed"], token,
-                     positions=torch.full((B, 1), index, device=dev)
-                     if cfg.pos_type == "learned" else None)
+    tr = wall()
+    with tr.span("model.embed") if tr.enabled else NOOP_SPAN:
+        x = embed_tokens(cfg, params["embed"], token,
+                         positions=torch.full((B, 1), index, device=dev)
+                         if cfg.pos_type == "learned" else None)
     if cfg.pos_type in ("rope", "mrope") and positions is None:
         positions = torch.full((B, 1), index, dtype=torch.int32, device=dev)
     angles = _angles(cfg, positions)
@@ -377,7 +393,8 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache,
     for l, lp in enumerate(params["layers"]):
         x, _, _ = block_decode(cfg, lp, x, angles, cache["k"][l],
                                cache["v"][l], index, kv_len)
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = logits_head(cfg, params["embed"], x)
+    with tr.span("model.head") if tr.enabled else NOOP_SPAN:
+        x = apply_norm(cfg, params["final_norm"], x)
+        logits = logits_head(cfg, params["embed"], x)
     cache["index"] = index + 1
     return logits, cache

@@ -1,7 +1,9 @@
 """Span tracing over the repo's injectable clocks.
 
-Port of ``repro.obs.trace``, copied verbatim: it holds no JAX, and the
-port keeps its own copy rather than importing the reference.
+Port of ``repro.obs.trace``: the reference's spans, buffer and tracers
+copied (it holds no JAX, and the port keeps its own copy rather than
+importing the reference), plus the profiler ranges at the end of this
+module, which the reference has no counterpart of.
 
 A ``Span`` is a named interval ``[t0, t1]`` with a parent, a clock
 domain, and free-form attributes. ``Tracer`` stamps spans from ONE
@@ -28,6 +30,19 @@ Overhead contract: instrumentation points guard on ``tracer.enabled``;
 the shared ``NOOP_TRACER`` answers every call with one preallocated
 no-op span, so with tracing disabled the hot path pays a single
 attribute check and allocates nothing.
+
+The port's own host work (the layers of the model functions, the routed
+window loop, the engine) is marked by wall spans that reach no sink:
+while a ``torch.profiler`` records, ``wall()`` returns ``PROFILER_RANGES``,
+whose span is a ``record_function`` range of the span's name, so the
+profiler's trace carries the program's spans beside the device activity,
+on its own clock; otherwise it returns ``NOOP_TRACER``. Model functions
+are free functions, so their sites call ``wall()`` rather than take a
+tracer. A site reads::
+
+    tr = wall()
+    with tr.span("model.attn") if tr.enabled else NOOP_SPAN:
+        ...
 """
 from __future__ import annotations
 
@@ -35,6 +50,9 @@ import collections
 import itertools
 import time as _time
 from typing import Callable, Deque, List, Optional
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 
 
 class Span:
@@ -104,6 +122,7 @@ class _NoopSpan:
 
 
 _NOOP_SPAN = _NoopSpan()
+NOOP_SPAN = _NOOP_SPAN
 
 
 class TraceBuffer:
@@ -236,3 +255,23 @@ class NoopTracer:
 
 
 NOOP_TRACER = NoopTracer()
+
+
+class ProfilerRanges:
+    """The wall sites' tracer while a torch profiler records: a span is a
+    ``record_function`` range of its name, kept by the profiler; nothing
+    is stamped or stored here. Wall sites open lexical spans only."""
+
+    enabled = True
+
+    def span(self, name: str) -> record_function:
+        return record_function(name)
+
+
+PROFILER_RANGES = ProfilerRanges()
+
+
+def wall():
+    """The tracer a wall site uses: ``PROFILER_RANGES`` while a torch
+    profiler records, else ``NOOP_TRACER``."""
+    return PROFILER_RANGES if _profiler_enabled() else NOOP_TRACER

@@ -29,6 +29,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import build_model
 from repro_torch.models.common import strict_fp32_matmul
+from repro_torch.obs.trace import NOOP_SPAN, wall
 from repro_torch.serving.api import SubmitSpec
 
 
@@ -200,7 +201,10 @@ class ServingEngine:
     ``seed`` (the reference's ``jax.random.categorical`` stream cannot be
     reproduced, so sampled tokens differ from the reference's; their
     distribution does not). ``prefills`` and ``decode_steps`` count the
-    model calls."""
+    model calls. Wall spans (``obs.trace.wall``): ``model.prefill`` and
+    ``model.decode`` around the model calls, ``engine.sample`` around the
+    next tokens' choice and ``engine.readback`` around their copy to the
+    host."""
 
     def __init__(self, cfg: ModelConfig, params, capacity_margin: int = 64,
                  max_batch: int = 64, device=None):
@@ -226,11 +230,15 @@ class ServingEngine:
 
     def _prefill(self, params, toks, cap: int):
         self.prefills += 1
-        return self.model.prefill(params, tokens=toks, capacity=cap)
+        tr = wall()
+        with tr.span("model.prefill") if tr.enabled else NOOP_SPAN:
+            return self.model.prefill(params, tokens=toks, capacity=cap)
 
     def _decode(self, params, token, cache):
         self.decode_steps += 1
-        return self.model.decode_step(params, token, cache)
+        tr = wall()
+        with tr.span("model.decode") if tr.enabled else NOOP_SPAN:
+            return self.model.decode_step(params, token, cache)
 
     def submit(self, spec, max_new_tokens: Optional[int] = None,
                eos_id: Optional[int] = None) -> Request:
@@ -280,9 +288,13 @@ class ServingEngine:
                 step_logits = logits
             else:
                 step_logits, cache = self._decode(self.params, cur, cache)
-            nxt = next_tokens(step_logits[:, -1, :], greedy, temperature, gen)
+            tr = wall()
+            with tr.span("engine.sample") if tr.enabled else NOOP_SPAN:
+                nxt = next_tokens(step_logits[:, -1, :], greedy, temperature,
+                                  gen)
             cur = nxt[:, None]
-            nxt_host = nxt.tolist()
+            with tr.span("engine.readback") if tr.enabled else NOOP_SPAN:
+                nxt_host = nxt.tolist()
             for i, r in enumerate(reqs):
                 if r.done or t >= r.max_new_tokens:
                     continue

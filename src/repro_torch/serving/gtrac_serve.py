@@ -64,7 +64,8 @@ from repro_torch.models.common import (apply_norm, embed_tokens, logits_head,
 from repro_torch.models.rope import positional_angles
 from repro_torch.models.transformer import block_forward, require_decoder
 from repro_torch.obs.metrics import MetricsRegistry, percentiles
-from repro_torch.obs.trace import NOOP_TRACER, TraceBuffer, Tracer
+from repro_torch.obs.trace import (NOOP_SPAN, NOOP_TRACER, TraceBuffer,
+                                   Tracer, wall)
 from repro_torch.serving.api import SubmitSpec
 from repro_torch.serving.batch_router import BatchRouter
 from repro_torch.serving.engine import (AdmissionQueue, Request,
@@ -90,7 +91,9 @@ def make_stage_fns(cfg: ModelConfig, params, partition: StagePartition):
     an M-RoPE (vlm) stage its text-only angles (the three streams equal),
     as the reference does in each stage. Serves the dense, MoE and vlm
     decoders (an MoE layer's load-balance loss is dropped, as the
-    reference's stage drops it). Runs under ``torch.inference_mode``."""
+    reference's stage drops it). Runs under ``torch.inference_mode``. Wall
+    span ``model.stage`` around ``model.embed`` (stage 0), the layers'
+    spans and ``model.head`` (last stage)."""
     require_decoder(cfg)
     n = partition.n_stages
 
@@ -102,20 +105,50 @@ def make_stage_fns(cfg: ModelConfig, params, partition: StagePartition):
         def fn(payload):
             tokens, x = payload                     # x may be None at stage 0
             B, S = tokens.shape
-            if i == 0:
-                x = embed_tokens(cfg, params["embed"], tokens)
-            pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-            angles = positional_angles(cfg, pos)    # None unless rotary
-            for lp in layers:
-                x, _ = block_forward(cfg, lp, x, angles)
-            if i == n - 1:
-                x = apply_norm(cfg, params["final_norm"], x)
-                return tokens, logits_head(cfg, params["embed"], x[:, -1:, :])
-            return tokens, x
+            tr = wall()
+            with tr.span("model.stage") if tr.enabled else NOOP_SPAN:
+                if i == 0:
+                    with tr.span("model.embed") if tr.enabled else NOOP_SPAN:
+                        x = embed_tokens(cfg, params["embed"], tokens)
+                pos = torch.arange(S, device=tokens.device)[None, :].expand(
+                    B, S)
+                angles = positional_angles(cfg, pos)  # None unless rotary
+                for lp in layers:
+                    x, _ = block_forward(cfg, lp, x, angles)
+                if i == n - 1:
+                    with tr.span("model.head") if tr.enabled else NOOP_SPAN:
+                        x = apply_norm(cfg, params["final_norm"], x)
+                        x = logits_head(cfg, params["embed"], x[:, -1:, :])
+                return tokens, x
 
         return fn
 
     return [stage_fn(i) for i in range(n)]
+
+
+@dataclass
+class StageStats:
+    """The stage forwards the routed hops run (``_hop_fn``; repairs and
+    hedge backups included), counted with plain integer adds:
+    ``forwards``; ``positions``, the sum of B·S·layers, what the stages
+    compute, each hop's payload holding its stream's whole prefix;
+    ``fresh``, the sum of ntok·layers, what the simulation charges (the
+    prefix less the peer's warm KV). ``positions / fresh`` is how many
+    positions the card computes for each one charged. Each server keeps
+    its own (``stage_stats``, exposed as ``stage/*``); ``last_stage_stats``
+    hands the newest server's to a reader with no handle on the server."""
+    forwards: int = 0
+    positions: int = 0
+    fresh: int = 0
+
+
+_last_stage_stats: Optional[StageStats] = None
+
+
+def last_stage_stats() -> Optional[StageStats]:
+    """The stage counters of the server made last in this process (they
+    outlive it); None before any."""
+    return _last_stage_stats
 
 
 def sample_token(logits, rng: np.random.Generator,
@@ -354,8 +387,11 @@ class GTRACPipelineServer:
         # hop charge; consumed by _apply_report before the anchor EMA
         self._tok_scale: Dict[Tuple[int, int], float] = {}
         self._stage_of = {}  # layer_start -> stage idx
+        self._stage_layers = []
         for i in range(self.partition.n_stages):
-            self._stage_of[self.partition.segment(i)[0]] = i
+            s, e = self.partition.segment(i)
+            self._stage_of[s] = i
+            self._stage_layers.append(e - s)
         # unified telemetry plane: every layer's live stats object is a
         # view in ONE registry — router, gossip, relay (plus the derived
         # wire-byte total) and the composer's health counters — and the
@@ -364,6 +400,9 @@ class GTRACPipelineServer:
         # mirroring per layer
         self.obs = MetricsRegistry()
         self.obs.expose("router", self.router.stats)
+        global _last_stage_stats
+        self.stage_stats = _last_stage_stats = StageStats()
+        self.obs.expose("stage", self.stage_stats)
         if self.gossip is not None:
             self.obs.expose("gossip", self.gossip.stats)
             if self.gossip.relay is not None:
@@ -401,7 +440,8 @@ class GTRACPipelineServer:
         loop) a hop is charged for the tokens it freshly processes —
         prefix length minus the peer's warm KV position — so warm chains
         decode at incremental cost while cold hops recompute. The default
-        keeps ``generate``'s classic flat per-token charge."""
+        keeps ``generate``'s classic flat per-token charge. Each stage
+        forward counts into ``stage_stats``."""
         def hop(peer_id: int, k: int, payload):
             peer = self.bed.peers[peer_id]
             if not self.bed.reachable(peer_id) or \
@@ -410,9 +450,9 @@ class GTRACPipelineServer:
                 return payload, detect, False
             stage = self._stage_of[peer.layer_start]
             out = self.stage_fns[stage](payload)   # REAL compute
+            B, prefix = payload[0].shape
             ntok = 1
             if kv_tracked:
-                prefix = int(payload[0].shape[1])
                 ntok = max(1, prefix - self.kv.warm_pos(request_id, peer_id))
                 if ntok > 1:
                     # latency_est_ms means ONE decode step everywhere
@@ -426,6 +466,11 @@ class GTRACPipelineServer:
                     one = peer.compute_ms(1) + peer.net_delay_ms
                     full = peer.compute_ms(ntok) + peer.net_delay_ms
                     self._tok_scale[(request_id, peer_id)] = one / full
+            layers = self._stage_layers[stage]
+            st = self.stage_stats
+            st.forwards += 1
+            st.positions += B * prefix * layers
+            st.fresh += ntok * layers
             return out, peer.hop_latency_ms(self.bed.rng, tokens=ntok), True
 
         return hop
@@ -596,32 +641,38 @@ class GTRACPipelineServer:
 
     def _emit_token(self, req: RoutedRequest, tok: int,
                     t_emit: float) -> None:
-        """Append one generated token and stamp its emission time."""
-        req.tokens = torch.cat(
-            [req.tokens, torch.full((1, 1), int(tok), dtype=req.tokens.dtype,
-                                    device=req.tokens.device)], dim=1)
-        req.output.append(int(tok))
-        req.metrics.tokens += 1
-        req.metrics.emit_ms.append(t_emit * 1e3)
-        if req.metrics.ttft_ms < 0:
-            req.metrics.ttft_ms = (t_emit - req.arrival_time) * 1e3
-        if (req.eos_id is not None and int(tok) == req.eos_id) or \
-                len(req.output) >= req.max_new_tokens:
-            req.done = True
+        """Append one generated token and stamp its emission time (wall
+        span ``loop.emit``)."""
+        wtr = wall()
+        with wtr.span("loop.emit") if wtr.enabled else NOOP_SPAN:
+            req.tokens = torch.cat(
+                [req.tokens, torch.full((1, 1), int(tok), dtype=req.tokens.dtype,
+                                        device=req.tokens.device)], dim=1)
+            req.output.append(int(tok))
+            req.metrics.tokens += 1
+            req.metrics.emit_ms.append(t_emit * 1e3)
+            if req.metrics.ttft_ms < 0:
+                req.metrics.ttft_ms = (t_emit - req.arrival_time) * 1e3
+            if (req.eos_id is not None and int(tok) == req.eos_id) or \
+                    len(req.output) >= req.max_new_tokens:
+                req.done = True
 
     def _finish_stream(self, req: RoutedRequest) -> None:
-        """Stream left the pools: reclaim KV slots and failure draws."""
-        rid = req.request_id
-        self.kv.drop_stream(rid)
-        for key in [k for k in self._tok_scale if k[0] == rid]:
-            del self._tok_scale[key]
-        for p in self.bed.peers.values():
-            p.forget_request(rid)
-        sp = self._req_spans.pop(rid, None)
-        if sp is not None:
-            self.tracer.end(sp, t1=self.bed.now,
-                            ttft_ms=req.metrics.ttft_ms,
-                            stale_rounds_max=req.metrics.stale_rounds_max)
+        """Stream left the pools: reclaim KV slots and failure draws (wall
+        span ``loop.emit``)."""
+        wtr = wall()
+        with wtr.span("loop.emit") if wtr.enabled else NOOP_SPAN:
+            rid = req.request_id
+            self.kv.drop_stream(rid)
+            for key in [k for k in self._tok_scale if k[0] == rid]:
+                del self._tok_scale[key]
+            for p in self.bed.peers.values():
+                p.forget_request(rid)
+            sp = self._req_spans.pop(rid, None)
+            if sp is not None:
+                self.tracer.end(sp, t1=self.bed.now,
+                                ttft_ms=req.metrics.ttft_ms,
+                                stale_rounds_max=req.metrics.stale_rounds_max)
 
     def _normalized_report(self, request_id: int, report):
         """Anchor-facing copy of ``report`` with every multi-token hop
@@ -641,16 +692,19 @@ class GTRACPipelineServer:
         return replace(report, hops=hops) if changed else report
 
     def _apply_report(self, req: RoutedRequest, report) -> None:
-        """Fold one chain execution's outcome into trust + metrics."""
-        anchor_rep = self._normalized_report(req.request_id, report)
-        for rep in split_reports(anchor_rep):
-            self.bed.anchor.apply_report(rep)
-        req.metrics.repairs += int(report.repaired)
-        req.metrics.rerouted += int(report.repaired)
-        stats = getattr(req.executor, "stats", None)
-        if stats is not None:         # hedged executor: surface counts
-            req.metrics.hedges_fired = stats.hedges_fired
-            req.metrics.hedges_won = stats.hedges_won
+        """Fold one chain execution's outcome into trust + metrics (wall
+        span ``loop.trust``)."""
+        wtr = wall()
+        with wtr.span("loop.trust") if wtr.enabled else NOOP_SPAN:
+            anchor_rep = self._normalized_report(req.request_id, report)
+            for rep in split_reports(anchor_rep):
+                self.bed.anchor.apply_report(rep)
+            req.metrics.repairs += int(report.repaired)
+            req.metrics.rerouted += int(report.repaired)
+            stats = getattr(req.executor, "stats", None)
+            if stats is not None:         # hedged executor: surface counts
+                req.metrics.hedges_fired = stats.hedges_fired
+                req.metrics.hedges_won = stats.hedges_won
 
     def run_queue(self) -> List[RoutedRequest]:
         """Serve every queued stream to completion under continuous
@@ -669,7 +723,15 @@ class GTRACPipelineServer:
         compute), and the final chunk's logits yield the first token, at
         which point the now-warm stream joins the decode pool. When
         nothing is runnable the clock jumps to the next chunk completion
-        or pending arrival."""
+        or pending arrival.
+
+        Wall spans (``obs.trace.wall``), on the host's clock beside the
+        simulated one's: ``loop.window`` around each pass, and in it
+        ``loop.admit`` (the sweep, the split, the promotions),
+        ``loop.view`` (the table, KV validation, staleness),
+        ``loop.route`` (the submits and ``route_window``),
+        ``loop.readback`` (each token read back to the host), and the
+        ``loop.trust`` and ``loop.emit`` spans of the methods it calls."""
         served: List[RoutedRequest] = []
         active: List[RoutedRequest] = []      # decode pool
         prefill: List[RoutedRequest] = []     # dedicated prefill streams
@@ -677,206 +739,217 @@ class GTRACPipelineServer:
         tr = self.tracer
         traced = tr.enabled
         while active or prefill or len(self.admission):
-            now = self.bed.now
-            # admission sweeps the registry (per-shard fan-out when the
-            # anchor is sharded) before the window is admitted
-            admitted = self.admission.next_window(
-                capacity=self.admission.max_batch - len(active)
-                - len(prefill), now=now)
-            served += admitted
-            if traced:
-                for req in admitted:
-                    rsp = tr.begin("request", cat="request",
-                                   t0=req.arrival_time, rid=req.request_id)
-                    self._req_spans[req.request_id] = rsp
-                    if now > req.arrival_time:
-                        tr.add("queue.wait", req.arrival_time, now,
-                               cat="serve", parent=rsp, rid=req.request_id)
-            if gcfg.disaggregate:
-                pre, dec = AdmissionQueue.split_by_kind(
-                    admitted, gcfg.prefill_chunk_tokens)
-            else:
-                pre, dec = [], admitted
-            for req in pre:
-                req.busy_until = now
-            prefill += pre
-            active += dec
-            # promote prefill streams whose final chunk has completed:
-            # emit the pending first token (stamped at chunk completion)
-            # and hand the warm stream to the decode pool
-            waiting: List[RoutedRequest] = []
-            for req in prefill:
-                if req.prefill_pos >= int(req.tokens.shape[1]) \
-                        and req.busy_until <= now:
-                    self._emit_token(req, req._pending_tok, req.busy_until)
+            wtr = wall()
+            with wtr.span("loop.window") if wtr.enabled else NOOP_SPAN:
+                now = self.bed.now
+                with wtr.span("loop.admit") if wtr.enabled else NOOP_SPAN:
+                    # admission sweeps the registry (per-shard fan-out when the
+                    # anchor is sharded) before the window is admitted
+                    admitted = self.admission.next_window(
+                        capacity=self.admission.max_batch - len(active)
+                        - len(prefill), now=now)
+                    served += admitted
+                    if traced:
+                        for req in admitted:
+                            rsp = tr.begin("request", cat="request",
+                                           t0=req.arrival_time, rid=req.request_id)
+                            self._req_spans[req.request_id] = rsp
+                            if now > req.arrival_time:
+                                tr.add("queue.wait", req.arrival_time, now,
+                                       cat="serve", parent=rsp, rid=req.request_id)
+                    if gcfg.disaggregate:
+                        pre, dec = AdmissionQueue.split_by_kind(
+                            admitted, gcfg.prefill_chunk_tokens)
+                    else:
+                        pre, dec = [], admitted
+                    for req in pre:
+                        req.busy_until = now
+                    prefill += pre
+                    active += dec
+                    # promote prefill streams whose final chunk has completed:
+                    # emit the pending first token (stamped at chunk completion)
+                    # and hand the warm stream to the decode pool
+                    waiting: List[RoutedRequest] = []
+                    for req in prefill:
+                        if req.prefill_pos >= int(req.tokens.shape[1]) \
+                                and req.busy_until <= now:
+                            self._emit_token(req, req._pending_tok, req.busy_until)
+                            if req.done:
+                                self._finish_stream(req)
+                            else:
+                                active.append(req)
+                        else:
+                            waiting.append(req)
+                    prefill = waiting
+                # launch prefill chunks up to the per-window token budget —
+                # the decode token budget, so prefill can never claim more
+                # window capacity than a full decode batch would. The budget
+                # protects decode streams; when the decode pool is empty
+                # there is nothing to displace, so every runnable stream
+                # launches (chunk size stays capped at the decode budget)
+                budget = self.admission.max_batch if active else None
+                chunks: List[Tuple[RoutedRequest, int]] = []
+                for req in prefill:
+                    if budget is not None and budget <= 0:
+                        break
+                    if req.busy_until > now:
+                        continue                   # chunk still in flight
+                    c = min(gcfg.prefill_chunk_tokens,
+                            int(req.tokens.shape[1]) - req.prefill_pos,
+                            self.admission.max_batch)
+                    if budget is not None:
+                        c = min(c, budget)
+                        budget -= c
+                    chunks.append((req, c))
+                if not active and not chunks:
+                    # nothing runnable now: jump to the next chunk completion
+                    # or the next arrival (bursty workloads)
+                    targets = [r.busy_until for r in prefill]
+                    nxt_arrival = self.admission.next_arrival()
+                    if nxt_arrival is not None and nxt_arrival > now:
+                        targets.append(nxt_arrival)
+                    if not targets:
+                        break
+                    self.bed.advance(min(targets) - now)
+                    continue
+                wsp = (tr.begin("serve.window", cat="window", t0=now, push=True,
+                                decode=len(active), prefill_launches=len(chunks))
+                       if traced else None)
+                with wtr.span("loop.view") if wtr.enabled else NOOP_SPAN:
+                    table = self._sync_and_view()
+                    self.kv.validate(table, gcfg.trust_floor)
+                    stale_rounds = (int(self.sync_seeker.staleness_rounds(
+                        self.bed.now).max())
+                        if self.sync_seeker is not None else 0)
+                with wtr.span("loop.route") if wtr.enabled else NOOP_SPAN:
+                    for req in active + [r for r, _ in chunks]:
+                        self.router.submit(
+                            req.request_id, req.tau,
+                            warm_ids=self.kv.warm_ids(req.request_id))
+                        req.metrics.stale_rounds_max = max(
+                            req.metrics.stale_rounds_max, stale_rounds)
+                    plans = self.router.route_window(table)   # ONE batched DP
+                # -- prefill chunk launches (asynchronous: charge busy_until,
+                #    the decode window below does not wait for them) --------
+                fail_ms = 0.0
+                for req, c in chunks:
+                    plan = plans[req.request_id]
+                    if not plan.feasible:
+                        req.metrics.infeasible += 1
+                        req.done = True
+                        continue
+                    end = req.prefill_pos + c
+                    prev_busy = req.busy_until
+                    report, out = req.executor.execute(
+                        plan.chain_ids(0), table,
+                        payload=(req.tokens[:, :end], None), plan=plan)
+                    self._apply_report(req, report)
+                    if traced:
+                        psp = self._req_spans.get(req.request_id)
+                        if now - prev_busy > 1e-12:
+                            # window-cadence gap between the previous chunk
+                            # completing and this launch
+                            tr.add("prefill.stall", prev_busy, now,
+                                   cat="prefill", parent=psp,
+                                   rid=req.request_id)
+                        csp = tr.add("prefill.chunk", now,
+                                     now + report.total_latency_ms / 1e3,
+                                     cat="prefill", parent=psp,
+                                     rid=req.request_id, tokens=c,
+                                     ok=report.success)
+                        self._trace_hops(csp, now, report)
+                    if not report.success:
+                        req.metrics.failures += 1
+                        req.done = True
+                        fail_ms = max(fail_ms, report.total_latency_ms)
+                        continue
+                    self.kv.record(req.request_id, report.chain, end)
+                    req.metrics.prefill_chunks += 1
+                    req.metrics.prefill_tokens += c
+                    req.prefill_pos = end
+                    req.busy_until = now + report.total_latency_ms / 1e3
+                    if end == int(req.tokens.shape[1]):
+                        _, logits = out            # final chunk: first token
+                        with (wtr.span("loop.readback") if wtr.enabled
+                              else NOOP_SPAN):
+                            req._pending_tok = int(torch.argmax(
+                                logits[:, -1, :], -1)[0])
+                # -- decode window: one token per stream --------------------
+                window_ms = 0.0
+                w_spans: List[Tuple[object, float]] = []
+                for req in active:
+                    plan = plans[req.request_id]
+                    if not plan.feasible:
+                        req.metrics.infeasible += 1
+                        req.done = True
+                        continue
+                    prefix = int(req.tokens.shape[1])
+                    report, payload = req.executor.execute(
+                        plan.chain_ids(0), table, payload=(req.tokens, None),
+                        plan=plan)
+                    self._apply_report(req, report)
+                    window_ms = max(window_ms, report.total_latency_ms)
+                    if traced:
+                        ssp = tr.add("decode.step", now,
+                                     now + report.total_latency_ms / 1e3,
+                                     cat="decode",
+                                     parent=self._req_spans.get(req.request_id),
+                                     rid=req.request_id, emitted=report.success,
+                                     first_token=(report.success
+                                                  and req.metrics.ttft_ms < 0))
+                        self._trace_hops(ssp, now, report)
+                        w_spans.append((ssp, report.total_latency_ms))
+                    if not report.success:
+                        req.metrics.failures += 1
+                        req.done = True
+                        continue
+                    # reuse accounting: only steps where the stream HAD warm
+                    # KV somewhere count — a first-contact step (inline
+                    # prefill, nothing recorded yet) is neither hit nor miss
+                    if self.kv.warm_ids(req.request_id):
+                        if self.kv.chain_warm(req.request_id, report.chain,
+                                              prefix - 1):
+                            req.metrics.kv_warm_hits += 1
+                        else:
+                            req.metrics.kv_cold_steps += 1
+                    self.kv.record(req.request_id, report.chain, prefix)
+                    _, logits = payload
+                    with (wtr.span("loop.readback") if wtr.enabled
+                          else NOOP_SPAN):
+                        tok = int(torch.argmax(logits[:, -1, :], -1)[0])
+                    req.metrics.token_latency_ms.append(report.total_latency_ms)
+                    self._emit_token(req, tok,
+                                     now + report.total_latency_ms / 1e3)
+                # decode streams run concurrently: the clock advances by the
+                # window's max decode latency; a pure-prefill window advances
+                # to its earliest chunk completion instead
+                if traced:
+                    # drag: the batch-synchronization gap between a stream's
+                    # own step finishing and the window's max latency — it
+                    # delays the stream's NEXT token, so ITL_k+1 = exec_k+1 +
+                    # drag_k (obs.report.itl_breakdown). Known only once the
+                    # window closes, hence the late stamp.
+                    for ssp, own in w_spans:
+                        ssp.set(drag_ms=window_ms - own)
+                if active:
+                    self.bed.advance(window_ms / 1e3)
+                elif chunks:
+                    # ALL in-flight streams, not just this window's launches —
+                    # an earlier chunk may complete (and promote) first
+                    waits = [r.busy_until for r in prefill
+                             if not r.done and r.busy_until > now]
+                    self.bed.advance((min(waits) - now) if waits
+                                     else fail_ms / 1e3)
+                if traced:
+                    tr.end(wsp, t1=self.bed.now, window_ms=window_ms)
+                for req in active:
                     if req.done:
                         self._finish_stream(req)
-                    else:
-                        active.append(req)
-                else:
-                    waiting.append(req)
-            prefill = waiting
-            # launch prefill chunks up to the per-window token budget —
-            # the decode token budget, so prefill can never claim more
-            # window capacity than a full decode batch would. The budget
-            # protects decode streams; when the decode pool is empty
-            # there is nothing to displace, so every runnable stream
-            # launches (chunk size stays capped at the decode budget)
-            budget = self.admission.max_batch if active else None
-            chunks: List[Tuple[RoutedRequest, int]] = []
-            for req in prefill:
-                if budget is not None and budget <= 0:
-                    break
-                if req.busy_until > now:
-                    continue                   # chunk still in flight
-                c = min(gcfg.prefill_chunk_tokens,
-                        int(req.tokens.shape[1]) - req.prefill_pos,
-                        self.admission.max_batch)
-                if budget is not None:
-                    c = min(c, budget)
-                    budget -= c
-                chunks.append((req, c))
-            if not active and not chunks:
-                # nothing runnable now: jump to the next chunk completion
-                # or the next arrival (bursty workloads)
-                targets = [r.busy_until for r in prefill]
-                nxt_arrival = self.admission.next_arrival()
-                if nxt_arrival is not None and nxt_arrival > now:
-                    targets.append(nxt_arrival)
-                if not targets:
-                    break
-                self.bed.advance(min(targets) - now)
-                continue
-            wsp = (tr.begin("serve.window", cat="window", t0=now, push=True,
-                            decode=len(active), prefill_launches=len(chunks))
-                   if traced else None)
-            table = self._sync_and_view()
-            self.kv.validate(table, gcfg.trust_floor)
-            stale_rounds = (int(self.sync_seeker.staleness_rounds(
-                self.bed.now).max()) if self.sync_seeker is not None else 0)
-            for req in active + [r for r, _ in chunks]:
-                self.router.submit(req.request_id, req.tau,
-                                   warm_ids=self.kv.warm_ids(req.request_id))
-                req.metrics.stale_rounds_max = max(
-                    req.metrics.stale_rounds_max, stale_rounds)
-            plans = self.router.route_window(table)   # ONE batched DP
-            # -- prefill chunk launches (asynchronous: charge busy_until,
-            #    the decode window below does not wait for them) --------
-            fail_ms = 0.0
-            for req, c in chunks:
-                plan = plans[req.request_id]
-                if not plan.feasible:
-                    req.metrics.infeasible += 1
-                    req.done = True
-                    continue
-                end = req.prefill_pos + c
-                prev_busy = req.busy_until
-                report, out = req.executor.execute(
-                    plan.chain_ids(0), table,
-                    payload=(req.tokens[:, :end], None), plan=plan)
-                self._apply_report(req, report)
-                if traced:
-                    psp = self._req_spans.get(req.request_id)
-                    if now - prev_busy > 1e-12:
-                        # window-cadence gap between the previous chunk
-                        # completing and this launch
-                        tr.add("prefill.stall", prev_busy, now,
-                               cat="prefill", parent=psp,
-                               rid=req.request_id)
-                    csp = tr.add("prefill.chunk", now,
-                                 now + report.total_latency_ms / 1e3,
-                                 cat="prefill", parent=psp,
-                                 rid=req.request_id, tokens=c,
-                                 ok=report.success)
-                    self._trace_hops(csp, now, report)
-                if not report.success:
-                    req.metrics.failures += 1
-                    req.done = True
-                    fail_ms = max(fail_ms, report.total_latency_ms)
-                    continue
-                self.kv.record(req.request_id, report.chain, end)
-                req.metrics.prefill_chunks += 1
-                req.metrics.prefill_tokens += c
-                req.prefill_pos = end
-                req.busy_until = now + report.total_latency_ms / 1e3
-                if end == int(req.tokens.shape[1]):
-                    _, logits = out            # final chunk: first token
-                    req._pending_tok = int(torch.argmax(logits[:, -1, :],
-                                                        -1)[0])
-            # -- decode window: one token per stream --------------------
-            window_ms = 0.0
-            w_spans: List[Tuple[object, float]] = []
-            for req in active:
-                plan = plans[req.request_id]
-                if not plan.feasible:
-                    req.metrics.infeasible += 1
-                    req.done = True
-                    continue
-                prefix = int(req.tokens.shape[1])
-                report, payload = req.executor.execute(
-                    plan.chain_ids(0), table, payload=(req.tokens, None),
-                    plan=plan)
-                self._apply_report(req, report)
-                window_ms = max(window_ms, report.total_latency_ms)
-                if traced:
-                    ssp = tr.add("decode.step", now,
-                                 now + report.total_latency_ms / 1e3,
-                                 cat="decode",
-                                 parent=self._req_spans.get(req.request_id),
-                                 rid=req.request_id, emitted=report.success,
-                                 first_token=(report.success
-                                              and req.metrics.ttft_ms < 0))
-                    self._trace_hops(ssp, now, report)
-                    w_spans.append((ssp, report.total_latency_ms))
-                if not report.success:
-                    req.metrics.failures += 1
-                    req.done = True
-                    continue
-                # reuse accounting: only steps where the stream HAD warm
-                # KV somewhere count — a first-contact step (inline
-                # prefill, nothing recorded yet) is neither hit nor miss
-                if self.kv.warm_ids(req.request_id):
-                    if self.kv.chain_warm(req.request_id, report.chain,
-                                          prefix - 1):
-                        req.metrics.kv_warm_hits += 1
-                    else:
-                        req.metrics.kv_cold_steps += 1
-                self.kv.record(req.request_id, report.chain, prefix)
-                _, logits = payload
-                tok = int(torch.argmax(logits[:, -1, :], -1)[0])
-                req.metrics.token_latency_ms.append(report.total_latency_ms)
-                self._emit_token(req, tok,
-                                 now + report.total_latency_ms / 1e3)
-            # decode streams run concurrently: the clock advances by the
-            # window's max decode latency; a pure-prefill window advances
-            # to its earliest chunk completion instead
-            if traced:
-                # drag: the batch-synchronization gap between a stream's
-                # own step finishing and the window's max latency — it
-                # delays the stream's NEXT token, so ITL_k+1 = exec_k+1 +
-                # drag_k (obs.report.itl_breakdown). Known only once the
-                # window closes, hence the late stamp.
-                for ssp, own in w_spans:
-                    ssp.set(drag_ms=window_ms - own)
-            if active:
-                self.bed.advance(window_ms / 1e3)
-            elif chunks:
-                # ALL in-flight streams, not just this window's launches —
-                # an earlier chunk may complete (and promote) first
-                waits = [r.busy_until for r in prefill
-                         if not r.done and r.busy_until > now]
-                self.bed.advance((min(waits) - now) if waits
-                                 else fail_ms / 1e3)
-            if traced:
-                tr.end(wsp, t1=self.bed.now, window_ms=window_ms)
-            for req in active:
-                if req.done:
-                    self._finish_stream(req)
-            for req, _ in chunks:
-                if req.done:
-                    self._finish_stream(req)
-            active = [r for r in active if not r.done]
-            prefill = [r for r in prefill if not r.done]
+                for req, _ in chunks:
+                    if req.done:
+                        self._finish_stream(req)
+                active = [r for r in active if not r.done]
+                prefill = [r for r in prefill if not r.done]
         for req in served:
             self._fill_stream_metrics(req.metrics)
         return served

@@ -337,6 +337,73 @@ def test_passed_torch_generator_is_clean(case):
                             "src/repro_torch/models/x.py") == []
 
 
+# The wall slot (``obs.trace.wall``) is a tracer receiver: its spans in
+# the models and the serving loops are held to the same guard.
+WALL_FLAGGED = {
+    "direct_call": """
+        def block(x):
+            with wall().span("model.attn"):
+                return x
+    """,
+    "alias": """
+        def block(x):
+            wtr = wall()
+            with wtr.span("model.attn"):
+                return x
+    """,
+    "module_attribute": """
+        from repro_torch.obs import trace
+
+        def block(x):
+            t = trace.wall()
+            sp = t.begin("model.attn")
+            t.end(sp)
+            return x
+    """,
+}
+WALL_CLEAN = {
+    "enabled_guard": """
+        def block(x):
+            tr = wall()
+            with tr.span("model.attn") if tr.enabled else NOOP_SPAN:
+                return x
+    """,
+    "alias_guard": """
+        def block(x):
+            wtr = wall()
+            with wtr.span("loop.window") if wtr.enabled else NOOP_SPAN:
+                return x
+    """,
+    "span_is_none": """
+        def block(x):
+            t = wall()
+            sp = t.begin("model.attn") if t.enabled else None
+            if sp is not None:
+                t.end(sp)
+            return x
+    """,
+    "other_call": """
+        def block(x, clock):
+            w = clock()
+            w.span("not a tracer")
+            return x
+    """,
+}
+
+
+@pytest.mark.parametrize("case", list(WALL_FLAGGED))
+def test_unguarded_wall_span_is_flagged(case):
+    fs = port_findings_in(WALL_FLAGGED[case], "src/repro_torch/models/x.py")
+    assert fs and {f.rule for f in fs} == {"tracer-guard"}, fs
+    assert all(f.symbol == "block" for f in fs)
+
+
+@pytest.mark.parametrize("case", list(WALL_CLEAN))
+def test_guarded_wall_span_is_clean(case):
+    assert port_findings_in(WALL_CLEAN[case],
+                            "src/repro_torch/serving/x.py") == []
+
+
 # ---------------------------------------------------------------------------
 # The version-bump contract on the port's registry
 # ---------------------------------------------------------------------------
