@@ -4,9 +4,12 @@ Port of ``repro.models.common``: the blocks every family shares, the
 training losses (``cross_entropy_loss``, ``chunked_cross_entropy``) and
 ``remat``, the counterpart of the reference's ``jax.checkpoint``.
 Parameters are nested dicts of torch tensors in the reference's layouts:
-dense weights are ``(in, out)`` and are cast to the activation dtype at each
-matmul, exactly as the reference does, so parameters converted from the
-reference need no transposes. Norm statistics are taken in f32.
+dense weights are ``(in, out)``, so parameters converted from the reference
+need no transposes. The model functions cast each weight to the activation
+dtype at its matmul, exactly as the reference does; the pipeline server and
+the KV-cache engine hand them a tree whose matmul weights were cast once,
+when they were built (``cast_matmul_weights``), so those casts return the
+weight itself. Norm statistics are taken in f32.
 """
 from __future__ import annotations
 
@@ -109,6 +112,53 @@ def init_embeddings(cfg: ModelConfig, generator: torch.Generator,
         p["head"] = dense_init((cfg.vocab_size, cfg.d_model), generator,
                                device, pdtype(cfg))
     return p
+
+
+#: the leaves the decoder's model functions read only through
+#: ``.to(<activation dtype>)`` at a matmul or a row gather, by the subtree
+#: that holds them: a layer's attention and feed-forward (the MLP's or the
+#: MoE experts' ``wi``, ``wg``, ``wo``) and the embeddings. The norms and the
+#: MoE router are read in f32 and are not among them.
+_CAST_LAYER = {"attn": ("wq", "wk", "wv", "wo"), "ffn": ("wi", "wg", "wo")}
+_CAST_EMBED = ("tok", "pos", "head")
+
+
+def _cast_sites(params: Params):
+    """(subtree, key) of each ``_CAST_LAYER`` / ``_CAST_EMBED`` leaf of a
+    decoder tree (``transformer.init_params``' layout)."""
+    emb = params["embed"]
+    yield from ((emb, k) for k in _CAST_EMBED if k in emb)
+    for lp in params["layers"]:
+        for sub, keys in _CAST_LAYER.items():
+            yield from ((lp[sub], k) for k in keys if k in lp[sub])
+
+
+def cast_matmul_weights(cfg: ModelConfig, params: Params) -> Params:
+    """A new decoder tree whose matmul weights and embedding tables are
+    cast to the activation dtype once: the same operand each matmul's own
+    ``.to`` would make, so the model functions compute the same bits on
+    it, without the casts. Every other leaf is the caller's own tensor,
+    and so is a leaf already in the activation dtype (``.to`` returns it):
+    a tree already in that dtype costs no new bytes. The copy is taken
+    here: a caller that changes ``params`` afterwards casts again."""
+    dt = adtype(cfg)
+    out = {**params, "embed": dict(params["embed"]),
+           "layers": [{**lp, **{sub: dict(lp[sub]) for sub in _CAST_LAYER}}
+                      for lp in params["layers"]]}
+    with torch.no_grad():
+        for p, k in _cast_sites(out):
+            p[k] = p[k].to(dt)
+    return out
+
+
+def cast_once_count(cfg: ModelConfig, params: Params) -> Dict[str, int]:
+    """``{"leaves": n, "bytes": b}``: the leaves ``cast_matmul_weights``
+    copies out of ``params`` (those not already in the activation dtype)
+    and the bytes of their copies."""
+    dt = adtype(cfg)
+    new = [p[k] for p, k in _cast_sites(params) if p[k].dtype != dt]
+    return {"leaves": len(new),
+            "bytes": sum(t.numel() for t in new) * dt.itemsize}
 
 
 def embed_tokens(cfg: ModelConfig, p: Params, tokens, positions=None):

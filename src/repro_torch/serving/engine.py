@@ -28,7 +28,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import build_model
-from repro_torch.models.common import strict_fp32_matmul
+from repro_torch.models.common import (cast_matmul_weights, cast_once_count,
+                                       strict_fp32_matmul)
+from repro_torch.models.transformer import _FAMILIES as _DECODER_FAMILIES
 from repro_torch.obs.trace import NOOP_SPAN, wall
 from repro_torch.serving.api import SubmitSpec
 
@@ -204,13 +206,20 @@ class ServingEngine:
     model calls. Wall spans (``obs.trace.wall``): ``model.prefill`` and
     ``model.decode`` around the model calls, ``engine.sample`` around the
     next tokens' choice and ``engine.readback`` around their copy to the
-    host."""
+    host.
+
+    For the decoder families (dense, MoE, vlm) ``self.params`` is
+    ``cast_matmul_weights(cfg, params)``: the matmul weights cast to the
+    activation dtype once, here, so no decode step casts them again;
+    ``cast_once`` counts the leaves copied and their bytes (0 for a tree
+    already in that dtype and for the other families, whose trees are
+    served as given). A caller that changes ``params`` afterwards builds
+    a new engine."""
 
     def __init__(self, cfg: ModelConfig, params, capacity_margin: int = 64,
                  max_batch: int = 64, device=None):
         self.cfg = cfg
         self.model = build_model(cfg)
-        self.params = params
         self.margin = capacity_margin
         self.device = resolve_device(device)
         emb = params["embed"]["tok"]
@@ -218,6 +227,12 @@ class ServingEngine:
             raise ValueError(f"params live on {emb.device}, the engine runs "
                              f"on {self.device}: build them there "
                              "(init_params / params_from_jax take a device)")
+        if cfg.family in _DECODER_FAMILIES:
+            self.params = cast_matmul_weights(cfg, params)
+            self.cast_once = cast_once_count(cfg, params)
+        else:
+            self.params = params
+            self.cast_once = {"leaves": 0, "bytes": 0}
         if self.device.type == "cuda":
             strict_fp32_matmul()   # f32 runs stay full f32 (no TF32)
         self.admission = AdmissionQueue(max_batch=max_batch)

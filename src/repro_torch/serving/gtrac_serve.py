@@ -59,8 +59,9 @@ from repro_torch.core.routing import ALGORITHMS
 from repro_torch.core.sharding import make_registry
 from repro_torch.core.types import HopReport
 from repro_torch.distributed.pipeline import StagePartition
-from repro_torch.models.common import (apply_norm, embed_tokens, logits_head,
-                                       strict_fp32_matmul)
+from repro_torch.models.common import (apply_norm, cast_matmul_weights,
+                                       cast_once_count, embed_tokens,
+                                       logits_head, strict_fp32_matmul)
 from repro_torch.models.rope import positional_angles
 from repro_torch.models.transformer import block_forward, require_decoder
 from repro_torch.obs.metrics import MetricsRegistry, percentiles
@@ -93,9 +94,16 @@ def make_stage_fns(cfg: ModelConfig, params, partition: StagePartition):
     decoders (an MoE layer's load-balance loss is dropped, as the
     reference's stage drops it). Runs under ``torch.inference_mode``. Wall
     span ``model.stage`` around ``model.embed`` (stage 0), the layers'
-    spans and ``model.head`` (last stage)."""
+    spans and ``model.head`` (last stage).
+
+    The stages close over one ``cast_matmul_weights`` copy of ``params``,
+    taken here and shared by every replica of a stage: their matmuls read
+    the activation-dtype weights without a cast. A caller that changes
+    ``params`` afterwards builds the stage functions (or the server)
+    anew."""
     require_decoder(cfg)
     n = partition.n_stages
+    params = cast_matmul_weights(cfg, params)
 
     def stage_fn(i: int):
         s, e = partition.segment(i)
@@ -308,8 +316,10 @@ class GTRACPipelineServer:
         ``cuda`` unless the caller passes another (``"cpu"`` in the
         tests); with no CUDA and no device given this raises rather than
         quietly running on the CPU. ``params`` must already live there.
-        ``router_backend`` picks the window router's DP
-        (``serving/batch_router.BACKENDS``)."""
+        The stage functions serve from a copy of its matmul weights cast
+        to the activation dtype now (``make_stage_fns``); ``cast_once``
+        counts the leaves copied and their bytes. ``router_backend``
+        picks the window router's DP (``serving/batch_router.BACKENDS``)."""
         self.cfg = cfg
         self.gcfg = gcfg or GTRACConfig()
         self.algorithm = algorithm
@@ -324,6 +334,7 @@ class GTRACPipelineServer:
         self.partition = StagePartition.uniform(cfg.num_layers,
                                                 layers_per_stage)
         self.stage_fns = make_stage_fns(cfg, params, self.partition)
+        self.cast_once = cast_once_count(cfg, params)
         rng = np.random.default_rng(seed)
         # any Registry (core/sharding.py): monolithic anchor for
         # cfg.anchor_shards=1, hash-partitioned ShardedAnchorRegistry
