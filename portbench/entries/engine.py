@@ -10,9 +10,10 @@ window closes at the first one at or after its length) and mark the
 emission of the step before (the engine emits a step's tokens after
 reading them back, just before it calls the next step); in the traced run
 each decode step is timed to its end (``decode_step_ms``) and each
-call's shape is recorded for the kernels' bounds. Set-up builds the
-kernels, makes the engine and warms one batch at the longest prompt of
-the mix through its prefill and a few decode steps.
+call's shape is recorded for the kernels' bounds, with the model's layers
+that launch them (the model module's ``attention_layers``). Set-up builds
+the kernels, makes the engine and warms one batch at the longest prompt
+of the mix through its prefill and a few decode steps.
 """
 from __future__ import annotations
 
@@ -22,7 +23,6 @@ import torch
 
 from portbench import traffic
 from portbench.harness import Run, Stream, WindowClosed, span
-from portbench.yardstick import span_flops, token_flops
 
 SOURCES = ("flash_attention.cu", "decode_attention.cu")
 WARM_DECODE_STEPS = 4
@@ -48,6 +48,7 @@ def serve(run: Run) -> None:
     run.profiler.warm()
     split["warmup_s"] = time.perf_counter() - t
 
+    attn_layers = run.model.attention_layers(cfg, 0, cfg.num_layers)
     marks = []                   # emission times of the batch's steps
     prefill0, decode0 = engine._prefill, engine._decode
     last = {}
@@ -57,7 +58,7 @@ def serve(run: Run) -> None:
         if run.profiler.active:
             B, S = toks.shape
             run.profiler.shapes.append(("k3", int(B), int(S),
-                                        cfg.num_layers))
+                                        attn_layers))
         with span(run, "portbench.prefill"):
             return prefill0(params, toks, cap)
 
@@ -69,7 +70,7 @@ def serve(run: Run) -> None:
         index = int(cache["index"])
         if run.profiler.active:
             run.profiler.shapes.append(("k4", int(token.shape[0]),
-                                        index + 1, cfg.num_layers))
+                                        index + 1, attn_layers))
         t0 = time.perf_counter()
         with span(run, "portbench.decode_step"):
             out = decode0(params, token, cache)
@@ -117,7 +118,7 @@ def serve(run: Run) -> None:
 def _collect(run: Run, reqs, streams, marks) -> None:
     """Each request's tokens, their emission times (step t's tokens at
     mark t) and the served work's operations."""
-    cfg, rec = run.cfg, run.record
+    cfg, rec, model = run.cfg, run.record, run.model
     served_prefill = bool(marks)
     for req, s in zip(reqs, streams):
         out = list(req.output)
@@ -129,8 +130,8 @@ def _collect(run: Run, reqs, streams, marks) -> None:
         P0 = len(s.prompt)
         if served_prefill:
             s.prefill_tokens = P0
-            rec.flops += span_flops(cfg, 0, P0, head_last=True)
-        decode = sum(token_flops(cfg, P0 + j - 1, True)
+            rec.flops += model.span_flops(cfg, 0, P0, head_last=True)
+        decode = sum(model.token_flops(cfg, P0 + j - 1, True)
                      for j in range(1, len(s.output)))
         rec.flops += decode
         rec.decode_flops += decode

@@ -15,7 +15,9 @@ The harness installs its hooks on that server instance and nowhere else:
   the comparison holds against the plain K-best reference;
 * ``router.submit``: each request's trust floor;
 * every stage function: a count of stage forwards, repairs included, and
-  in the traced slice each forward's (B, S, layers) for K3's bound;
+  in the traced slice each forward's (B, S, layers) for K3's bound, the
+  layers those of the stage that launch it (the model module's
+  ``attention_layers``);
 * ``_emit_token``: each token's wall time (inter-token gaps);
 * ``_finish_stream``: which streams ended in the window.
 
@@ -34,7 +36,6 @@ import torch
 
 from portbench import traffic
 from portbench.harness import Run, Stream, WindowClosed, span
-from portbench.yardstick import span_flops, token_flops
 
 #: cycles of the mix submitted ahead; more follow if the queue drains
 CYCLES_AHEAD = 8
@@ -70,8 +71,9 @@ def serve(run: Run) -> None:
                             "k_best": gcfg.k_best_routes})
 
     streams = {}
-    layers_of = [e - s for s, e in (server.partition.segment(i) for i in
-                                    range(server.partition.n_stages))]
+    layers_of = [run.model.attention_layers(cfg, s, e)
+                 for s, e in (server.partition.segment(i) for i in
+                              range(server.partition.n_stages))]
 
     def wrap_stage(i, fn):
         def stage(payload):
@@ -213,9 +215,9 @@ def serve(run: Run) -> None:
         s.cold_steps = int(req.metrics.kv_cold_steps)
         rec.streams.append(s)
         P0 = len(s.prompt)
-        rec.flops += span_flops(cfg, 0, s.prefill_tokens,
-                                head_last=s.prefill_tokens == P0)
-        rec.flops += sum(token_flops(cfg, P0 + j - 1, True)
+        rec.flops += run.model.span_flops(cfg, 0, s.prefill_tokens,
+                                          head_last=s.prefill_tokens == P0)
+        rec.flops += sum(run.model.token_flops(cfg, P0 + j - 1, True)
                          for j in range(1, len(s.output)))
     del server
     if cuda:

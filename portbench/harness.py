@@ -1,12 +1,17 @@
 """One run of one cell: the parts every entry shares.
 
 ``run_cell`` loads the cell's files by name (``BENCHMARK.json``'s
-workload, then ``configs/<config>.json``, ``traffic/<traffic>.json``,
-``limits/<workload>.json`` and the entry ``entries/<entry>.py`` the
-traffic file names), makes the weights from the seed, lets the entry set
-up, warm up and serve the measured window, reads the peak memory, frees
-the program's state, runs the comparison that decides ``correct``, and
-reads the metrics the cell reports through ``metrics/<metric>.py``.
+workload, then ``configs/<config>.json``, the model module
+``reference/<model>.py`` the configuration file names, ``traffic/
+<traffic>.json``, ``limits/<workload>.json`` and the entry ``entries/
+<entry>.py`` the traffic file names), makes the weights from the seed in
+the model module's layout, lets the entry set up, warm up and serve the
+measured window, reads the peak memory, frees the program's state, runs
+the comparison that decides ``correct`` against the model module's
+reference, and reads the metrics the cell reports through
+``metrics/<metric>.py``. The model module is all the harness knows of an
+architecture: its layout, reference, operation count and attention
+layers (``reference/decoder.py`` documents the interface).
 
 The window is wall time: it opens when set-up ends and closes at the
 first boundary the entry reports (a routing window, a decode step, a
@@ -128,6 +133,7 @@ class Run:
     mix: Dict
     limits: Dict
     cfg: object                  # the port's ModelConfig as run
+    model: object                # reference/<model>.py of the config
     seed: int
     seconds: float
     trace: bool
@@ -187,6 +193,16 @@ def load_module(kind: str, name: str):
     return mod
 
 
+def model_module(config: Dict, path: Path):
+    """The model module ``reference/<model>.py`` that the configuration
+    file at ``path`` names under ``"model"``."""
+    if "model" not in config:
+        raise ValueError(f"{path} names no model module: it needs "
+                         "\"model\": \"<module>\", a file of "
+                         "portbench/reference/")
+    return load_module("reference", config["model"])
+
+
 def prepare(bench: Dict, workload: str, seed: int, seconds: float,
             trace: bool, device, t_start: float,
             overrides: Optional[Dict] = None, faults: tuple = (),
@@ -197,16 +213,18 @@ def prepare(bench: Dict, workload: str, seed: int, seconds: float,
     ``config_patch`` and ``mix_patch`` (keys replaced in the files),
     ``faults`` and ``clock`` serve the CPU tests only."""
     cell = find_cell(bench, workload)
-    config = load_json(HERE / "configs" / f"{cell['config']}.json")
+    path = HERE / "configs" / f"{cell['config']}.json"
+    config = load_json(path)
     config.update(config_patch or {})
+    model = model_module(config, path)
     mix = traffic_mod.load(cell["traffic"])
     mix.update(mix_patch or {})
     limits = load_json(HERE / "limits" / f"{workload}.json")
     cfg = model_config(config, overrides)
     prof = SliceProfiler(seconds, enabled=trace)
     return Run(cell=cell, config=config, mix=mix, limits=limits, cfg=cfg,
-               seed=int(seed), seconds=float(seconds), trace=bool(trace),
-               device=device, t_start=t_start,
+               model=model, seed=int(seed), seconds=float(seconds),
+               trace=bool(trace), device=device, t_start=t_start,
                window=Window(seconds, prof, clock), profiler=prof,
                faults=faults)
 
@@ -220,7 +238,8 @@ def run_cell(run: Run) -> Dict:
                            "the card")
     entry = load_module("entries", run.mix["entry"])
     t = time.perf_counter()
-    run.params = weights.make_params(run.cfg, run.seed, run.device)
+    run.params = weights.make_params(run.cfg, run.seed, run.device,
+                                     run.model.layout)
     if torch.device(run.device).type == "cuda":
         torch.cuda.synchronize()
     run.record.setup_split["weights_s"] = time.perf_counter() - t
@@ -264,10 +283,11 @@ def sample_streams(streams: List[Stream], seed: int,
     return out
 
 
-def readings(cfg, W, streams: List[Stream], per_step_capacity: bool,
+def readings(model, cfg, W, streams: List[Stream], per_step_capacity: bool,
              device, quant: Optional[str] = None) -> Dict[str, List[float]]:
     """Readings for every served token of ``streams``, each in units of
-    the standard deviation of the reference's logits at its position.
+    the standard deviation of the reference's logits at its position
+    (``model.served_logits``, the model module's reference).
     Without ``quant`` they read the program: its served tokens and, where
     the entry captured them, its logits. With ``quant`` the reference in
     that precision takes the program's place on the same prompts and
@@ -285,13 +305,12 @@ def readings(cfg, W, streams: List[Stream], per_step_capacity: bool,
       float32 logits, where the bound holds exactly.
     """
     import torch
-    from portbench.reference import decoder
     out: Dict[str, List[float]] = {"logit_gap": [], "logit_err": [],
                                    "greedy_excess": []}
     for s in streams:
         prompt = torch.as_tensor(s.prompt.astype(np.int64), device=device)
-        ref = decoder.served_logits(cfg, W, prompt, s.output,
-                                    per_step_capacity).double()
+        ref = model.served_logits(cfg, W, prompt, s.output,
+                                  per_step_capacity).double()
         sd = ref.std(-1)
         if quant is None:
             chosen = torch.as_tensor(s.output, device=device)
@@ -300,8 +319,8 @@ def readings(cfg, W, streams: List[Stream], per_step_capacity: bool,
             other = (torch.cat([x.reshape(1, -1).float() for x in s.logits])
                      if whole else None)
         else:
-            other = decoder.served_logits(cfg, W, prompt, s.output,
-                                          per_step_capacity, quant=quant)
+            other = model.served_logits(cfg, W, prompt, s.output,
+                                        per_step_capacity, quant=quant)
             chosen = other.argmax(-1)
         gap = ref.max(-1).values - \
             ref.gather(1, chosen[:, None].to(torch.int64))[:, 0]
@@ -343,8 +362,8 @@ def compare(run: Run, control: bool = False) -> Dict:
     sample = sample_streams(rec.streams, run.seed,
                             int(run.mix["check_tokens"]))
     per_step = bool(rec.check.get("per_step_capacity", False))
-    got = readings(run.cfg, run.params, sample, per_step, run.device,
-                   quant="fp8" if control else None)
+    got = readings(run.model, run.cfg, run.params, sample, per_step,
+                   run.device, quant="fp8" if control else None)
     rec.check["checked_tokens"] = len(got["logit_gap"])
     if control:
         rec.check["control"] = "fp8"

@@ -1,14 +1,24 @@
-"""The plain reference of the decoder configurations: a dense
-LayerNorm / GELU / RoPE / GQA decoder (StarCoder2) and an RMSNorm / SiLU /
-RoPE / GQA decoder with a capacity-limited mixture of experts (Qwen3-MoE),
-in float32 plain PyTorch, with no kernel, cache or batching.
+"""The model module of the decoder configurations (``"model":
+"decoder"``): a dense LayerNorm / GELU / RoPE / GQA decoder (StarCoder2),
+an RMSNorm / SiLU / RoPE / GQA decoder with a capacity-limited mixture of
+experts (Qwen3-MoE), and a LayerNorm / GELU decoder with learned
+positions and a tied head (GPT-2). Everything the harness needs to know of
+the architecture is here, and it imports nothing of the program:
 
-It imports nothing of the program. It reads the benchmark's weights (the
-parameter dict ``portbench/weights.py`` makes) and follows the layer
+* ``layout``: the parameter tree ``portbench/weights.py`` fills, leaf by
+  leaf in buffer order;
+* ``served_logits``: the plain reference, in float32 plain PyTorch, with
+  no kernel, cache or batching, that decides ``correct``;
+* ``token_flops`` / ``span_flops``: the operations ``mfu`` and
+  ``mfu.decode`` count;
+* ``attention_layers``: how many layers of a stretch launch K3 / K4.
+
+The reference reads the benchmark's weights and follows the layer
 equations the port serves (``src/repro_torch/models/{common,attention,
 mlp,moe,rope,transformer}.py`` at commit 0da9266), written out again:
 
-* x = embedding rows; per layer h = norm1(x), q, k, v = h Wq, h Wk, h Wv
+* x = embedding rows (plus the learned position rows, where the
+  configuration has them); per layer h = norm1(x), q, k, v = h Wq, h Wk, h Wv
   (no biases), RoPE (half-split pairs, angles position / theta^(2i/D)),
   causal softmax(q k^T / sqrt(D)) v with query head h reading KV head
   h // (Hq / Hkv), x += o Wo; h = norm2(x), x += FFN(h);
@@ -33,7 +43,7 @@ bfloat16.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +51,102 @@ import torch.nn.functional as F
 #: query rows per block of the attention, to bound the score memory
 ATTN_BLOCK = 1024
 _E4M3_MAX = 448.0
+
+
+def layout(cfg) -> Iterator[tuple]:
+    """Every leaf of the port's parameter dict (``models/transformer.py``:
+    ``embed`` {``tok``, ``pos``, ``head``}, ``layers`` a list of {``attn``,
+    ``ffn``, ``norm1``, ``norm2``}, ``final_norm``) as ``(path, shape,
+    fill)``, in buffer order: the matrices at the seeded buffer's values,
+    then the norms, weights ones and LayerNorm biases zeros, as the port's
+    ``init_norm`` makes them. The learned position table
+    ((``max_position``, d), the port's shape) follows the token embedding
+    only where the configuration has learned positions."""
+    d, V = cfg.d_model, cfg.vocab_size
+    hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    yield ("embed", "tok"), (V, d), 1.0
+    if cfg.pos_type == "learned":
+        yield ("embed", "pos"), (cfg.max_position, d), 1.0
+    if not cfg.tie_embeddings:
+        yield ("embed", "head"), (V, d), 1.0
+    for i in range(cfg.num_layers):
+        L = ("layers", str(i))
+        yield L + ("attn", "wq"), (d, hq), 1.0
+        yield L + ("attn", "wk"), (d, hkv), 1.0
+        yield L + ("attn", "wv"), (d, hkv), 1.0
+        yield L + ("attn", "wo"), (hq, d), 1.0
+        f = cfg.d_ff
+        if cfg.family == "moe":
+            E = cfg.num_experts
+            yield L + ("ffn", "router"), (d, E), 1.0
+            yield L + ("ffn", "wi"), (E, d, f), 1.0
+            yield L + ("ffn", "wo"), (E, f, d), 1.0
+            if cfg.act == "silu":
+                yield L + ("ffn", "wg"), (E, d, f), 1.0
+        else:
+            yield L + ("ffn", "wi"), (d, f), 1.0
+            yield L + ("ffn", "wo"), (f, d), 1.0
+            if cfg.act == "silu":
+                yield L + ("ffn", "wg"), (d, f), 1.0
+    norms = [("layers", str(i), n) for i in range(cfg.num_layers)
+             for n in ("norm1", "norm2")] + [("final_norm",)]
+    for path in norms:
+        yield path + ("weight",), (d,), "ones"
+        if cfg.norm_type != "rmsnorm":
+            yield path + ("bias",), (d,), "zeros"
+
+
+def layer_matmul_params(cfg) -> int:
+    """Weights one token multiplies in one layer: the attention
+    projections and the feed-forward (for an MoE layer the router and the
+    ``experts_per_token`` routed experts only)."""
+    d, hq = cfg.d_model, cfg.num_heads * cfg.head_dim
+    hkv = cfg.num_kv_heads * cfg.head_dim
+    attn = d * hq + 2 * d * hkv + hq * d
+    mats = 3 if cfg.act == "silu" else 2
+    if cfg.family == "moe":
+        ffn = d * cfg.num_experts + cfg.experts_per_token * mats * d * cfg.d_ff
+    else:
+        ffn = mats * d * cfg.d_ff
+    return attn + ffn
+
+
+def token_flops(cfg, position: int, head: bool) -> float:
+    """Operations one token at ``position`` (0-based) needs in a KV-cache
+    deployment: 2 per weight it multiplies in every layer, attention over
+    its ``position + 1`` visible keys (QK^T and PV, 2 each per key, head
+    and channel), and the output head when its logits are read
+    (``launch/roofline.py``'s 2·N per token at commit 0da9266, N the
+    parameters a token passes through, the routed experts only for an MoE
+    layer, with attention over the prefix added)."""
+    per_layer = 2 * layer_matmul_params(cfg) + \
+        4 * cfg.num_heads * cfg.head_dim * (position + 1)
+    out = cfg.num_layers * per_layer
+    if head:
+        out += 2 * cfg.d_model * cfg.vocab_size
+    return float(out)
+
+
+def span_flops(cfg, start: int, end: int, head_last: bool) -> float:
+    """``token_flops`` summed over positions ``start .. end - 1``, the
+    head counted for the last position only when ``head_last``: a prompt
+    chunk in closed form."""
+    n = end - start
+    if n <= 0:
+        return 0.0
+    per_layer = 2 * layer_matmul_params(cfg) * n + \
+        4 * cfg.num_heads * cfg.head_dim * ((end * (end + 1)
+                                             - start * (start + 1)) // 2)
+    out = cfg.num_layers * per_layer
+    if head_last:
+        out += 2 * cfg.d_model * cfg.vocab_size
+    return float(out)
+
+
+def attention_layers(cfg, start: int, end: int) -> int:
+    """Layers in ``[start, end)`` that launch the attention kernels: every
+    layer of a decoder."""
+    return end - start
 
 
 def _qdq(t: torch.Tensor, quant: Optional[str]) -> torch.Tensor:
@@ -158,6 +264,8 @@ def forward_logits(cfg, W: Dict, tokens: torch.Tensor,
     toks = tokens[:n]
     x = W["embed"]["tok"][toks].float()
     pos = torch.arange(n, device=x.device)
+    if cfg.pos_type == "learned":
+        x = x + W["embed"]["pos"][pos].float()
     cap = moe_capacity(cfg, capacity_tokens or n) \
         if cfg.family == "moe" else 0
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim

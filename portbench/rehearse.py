@@ -51,8 +51,9 @@ def rehearse(workload: str, gap_s: float, cost_ms: Sequence[float],
 
     bench = harness.benchmark()
     cell = harness.find_cell(bench, workload)
-    config = harness.load_json(harness.HERE / "configs"
-                               / f"{cell['config']}.json")
+    path = harness.HERE / "configs" / f"{cell['config']}.json"
+    config = harness.load_json(path)
+    model = harness.model_module(config, path)
     mix = dict(traffic.load(cell["traffic"]), arrival_gap_s=float(gap_s))
     if mix["entry"] != "routed":
         raise ValueError(f"{workload} is not a routed cell")
@@ -63,7 +64,7 @@ def rehearse(workload: str, gap_s: float, cost_ms: Sequence[float],
     cfg = base.reduced(**tiny)
     dep = config["deployment"]
     server = GTRACPipelineServer(
-        cfg, weights.make_params(cfg, 0, "cpu"),
+        cfg, weights.make_params(cfg, 0, "cpu", model.layout),
         layers_per_stage=int(dep["layers_per_stage"]),
         replicas=dict(dep["replicas"]),
         gcfg=GTRACConfig(**config.get("gtrac", {})),

@@ -33,7 +33,7 @@ def test_float8_control_fails_the_limit(workload, config):
     limits = harness.load_json(harness.HERE / "limits"
                                / f"{workload}.json")
     cfg = get_config(config).reduced(**FAMILY[config])
-    W = weights.make_params(cfg, 1, "cpu")
+    W = weights.make_params(cfg, 1, "cpu", decoder.layout)
     g = torch.Generator().manual_seed(0)
     per_step = workload.endswith(".routed")
     streams = []
@@ -49,7 +49,7 @@ def test_float8_control_fails_the_limit(workload, config):
         prompt = torch.as_tensor(s.prompt.astype(np.int64))
         s.logits = list(decoder.served_logits(cfg, W, prompt, s.output,
                                               per_step))
-    exact = harness.readings(cfg, W, streams, per_step, "cpu")
+    exact = harness.readings(decoder, cfg, W, streams, per_step, "cpu")
     assert max(exact["logit_gap"]) == 0.0 and max(exact["logit_err"]) < 1e-5
     assert max(exact["greedy_excess"]) <= 0.0
     bench = harness.benchmark()

@@ -57,7 +57,7 @@ def test_plan_mismatch_accepts_the_plan_and_catches_an_altered_one():
 def test_moe_per_step_capacity_is_one_forward_per_position():
     from repro_torch.configs import get_config
     cfg = get_config("qwen3-moe-30b-a3b").reduced(**TINY_MOE)
-    W = weights.make_params(cfg, 5, "cpu")
+    W = weights.make_params(cfg, 5, "cpu", decoder.layout)
     g = torch.Generator().manual_seed(0)
     prompt = torch.randint(0, cfg.vocab_size, (90,), generator=g)
     out = torch.randint(0, cfg.vocab_size, (40,), generator=g).tolist()

@@ -1,6 +1,6 @@
 """The yardstick's arithmetic against hand-worked numbers: percentiles
-over every sample, the rate, the operation counts at StarCoder2's and
-Qwen3's widths, and the kernels' least-time bounds."""
+over every sample, the rate, the decoder module's operation counts at
+StarCoder2's and Qwen3's widths, and the kernels' least-time bounds."""
 from __future__ import annotations
 
 import types
@@ -10,6 +10,7 @@ import pytest
 
 from portbench import harness, yardstick as y
 from portbench.harness import Record, Stream
+from portbench.reference import decoder as m
 
 
 def _cfg(name):
@@ -46,13 +47,13 @@ def test_rate_and_gap_tail_take_every_token_and_gap():
 def test_flops_at_starcoder2_widths():
     cfg = _cfg("starcoder2-7b")
     # attention 4608x4608 + 2 x 4608x512 + 4608x4608, MLP 2 x 4608x18432
-    assert y.layer_matmul_params(cfg) == 47_185_920 + 169_869_312
+    assert m.layer_matmul_params(cfg) == 47_185_920 + 169_869_312
     # position 99: 32 layers x (2 x 217,055,232 + 4 x 36 x 128 x 100)
     # plus the head 2 x 4608 x 49,152
-    assert y.token_flops(cfg, 99, True) == \
+    assert m.token_flops(cfg, 99, True) == \
         32 * (434_110_464 + 1_843_200) + 452_984_832
-    assert y.span_flops(cfg, 10, 20, True) == pytest.approx(
-        sum(y.token_flops(cfg, p, False) for p in range(10, 20))
+    assert m.span_flops(cfg, 10, 20, True) == pytest.approx(
+        sum(m.token_flops(cfg, p, False) for p in range(10, 20))
         + 452_984_832)
 
 
@@ -60,9 +61,9 @@ def test_flops_at_qwen3_widths():
     cfg = _cfg("qwen3-moe-30b-a3b")
     # attention 2048x4096 + 2 x 2048x512 + 4096x2048, router 2048x128,
     # 8 routed experts of 3 x 2048x768
-    assert y.layer_matmul_params(cfg) == \
+    assert m.layer_matmul_params(cfg) == \
         18_874_368 + 262_144 + 8 * 4_718_592
-    assert y.token_flops(cfg, 0, False) == \
+    assert m.token_flops(cfg, 0, False) == \
         48 * (2 * 56_885_248 + 4 * 32 * 128)
 
 

@@ -1,5 +1,5 @@
-"""The benchmark's yardstick: peaks, percentiles, operation counts and
-the least-time bounds of the attention kernels.
+"""The benchmark's yardstick: peaks, percentiles and the least-time
+bounds of the attention kernels.
 
 Frozen copies, so that a change to the program cannot move them:
 
@@ -10,10 +10,11 @@ Frozen copies, so that a change to the program cannot move them:
   peak rate of the input type), with the causal pair count in closed form;
 * the peaks of one NVIDIA H100 SXM (the data sheet's dense rates), as
   ``src/repro_torch/launch/roofline.py`` and ``chip_smoke.py`` hold them
-  at commit 0da9266;
-* ``token_flops``: ``launch/roofline.py``'s 2·N per token at commit
-  0da9266 (N the parameters a token passes through, the routed experts
-  only for an MoE layer), with attention over the token's prefix added.
+  at commit 0da9266.
+
+The operations a token needs depend on the architecture: each
+configuration's model module counts them (``reference/<model>.py``
+``token_flops``, ``span_flops``).
 """
 from __future__ import annotations
 
@@ -82,46 +83,3 @@ def k4_bound_ms(B: int, Hq: int, Hkv: int, D: int, kv_len: int,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
-
-def layer_matmul_params(cfg) -> int:
-    """Weights one token multiplies in one layer: the attention
-    projections and the feed-forward (for an MoE layer the router and the
-    ``experts_per_token`` routed experts only)."""
-    d, hq = cfg.d_model, cfg.num_heads * cfg.head_dim
-    hkv = cfg.num_kv_heads * cfg.head_dim
-    attn = d * hq + 2 * d * hkv + hq * d
-    mats = 3 if cfg.act == "silu" else 2
-    if cfg.family == "moe":
-        ffn = d * cfg.num_experts + cfg.experts_per_token * mats * d * cfg.d_ff
-    else:
-        ffn = mats * d * cfg.d_ff
-    return attn + ffn
-
-
-def token_flops(cfg, position: int, head: bool) -> float:
-    """Operations one token at ``position`` (0-based) needs in a KV-cache
-    deployment: 2 per weight it multiplies in every layer, attention over
-    its ``position + 1`` visible keys (QK^T and PV, 2 each per key, head
-    and channel), and the output head when its logits are read."""
-    per_layer = 2 * layer_matmul_params(cfg) + \
-        4 * cfg.num_heads * cfg.head_dim * (position + 1)
-    out = cfg.num_layers * per_layer
-    if head:
-        out += 2 * cfg.d_model * cfg.vocab_size
-    return float(out)
-
-
-def span_flops(cfg, start: int, end: int, head_last: bool) -> float:
-    """``token_flops`` summed over positions ``start .. end - 1``, the
-    head counted for the last position only when ``head_last``: a prompt
-    chunk in closed form."""
-    n = end - start
-    if n <= 0:
-        return 0.0
-    per_layer = 2 * layer_matmul_params(cfg) * n + \
-        4 * cfg.num_heads * cfg.head_dim * ((end * (end + 1)
-                                             - start * (start + 1)) // 2)
-    out = cfg.num_layers * per_layer
-    if head_last:
-        out += 2 * cfg.d_model * cfg.vocab_size
-    return float(out)
