@@ -11,7 +11,10 @@ attention block of head dim 80); qwen2-vl-7b (vlm: M-RoPE, a prefix of
 stub patch embeddings) through both serving paths for text and through the
 model API with an image prefix; and whisper-large-v3 (audio: encoder over
 stub frame embeddings, decoder with cross-attention) through its model API.
-``ALL_ARCHS`` is the reference's list, in the reference's order;
+Granite-4.0-H-Small (a decoder stack of Mamba2 and NoPE attention layers,
+each followed by 72 experts and a shared expert) is the port's own, served
+through the pipeline server only; ``ALL_ARCHS`` is the reference's list, in
+the reference's order, without it;
 ``ASSIGNED_ARCHS`` (all but the paper's GPT-2) and ``get_shape`` are the
 reference's too (the dry-run's grid).
 """
@@ -58,10 +61,15 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen2-vl-7b": "qwen2_vl_7b",
     # the paper's own evaluation model (GPT-2 Large, 36 layers)
     "gpt2-large": "gpt2_large",
+    # Mamba2 / NoPE attention hybrid with 72 experts and a shared expert
+    "granite-4.0-h-small": "granite_4_0_h_small",
 }
 
-ASSIGNED_ARCHS: List[str] = [a for a in _ARCH_MODULES if a != "gpt2-large"]
-ALL_ARCHS: List[str] = list(_ARCH_MODULES)
+#: the port's own configs, which the reference's lists do not hold
+_PORT_ONLY = ("granite-4.0-h-small",)
+ASSIGNED_ARCHS: List[str] = [a for a in _ARCH_MODULES
+                             if a not in ("gpt2-large",) + _PORT_ONLY]
+ALL_ARCHS: List[str] = [a for a in _ARCH_MODULES if a not in _PORT_ONLY]
 
 
 def get_config(name: str) -> ModelConfig:

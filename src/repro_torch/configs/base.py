@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, replace
-from typing import Tuple
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Model configuration
@@ -48,6 +48,21 @@ class ModelConfig:
 
     # --- RWKV6 ---
     rwkv_head_dim: int = 64
+
+    # --- per-layer mixers and multipliers (Granite-4.0-H) ---
+    # the mixer of each layer of a decoder stack, "attention" or "mamba"
+    # (a Mamba2 mixer, ``models/mamba2.py``); () = every layer attention
+    layer_types: Tuple[str, ...] = ()
+    # width of one always-on SwiGLU expert added to the routed experts'
+    # output (0 = none)
+    shared_expert_ff: int = 0
+    # the embedding rows times this; the attention scores times this
+    # (None = 1/sqrt(head_dim)); each mixer's and feed-forward's output
+    # times this before the residual add; the logits divided by this
+    embedding_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
 
     # --- positional / misc ---
     pos_type: str = "rope"      # rope | mrope | learned | none
@@ -121,10 +136,10 @@ class ModelConfig:
                 total += self.enc_layers * per_layer + L * (d * hq + 2 * d * hkv + hq * d)
             return total
         if self.family == "moe":
-            attn = d * hq + 2 * d * hkv + hq * d
             router = d * self.num_experts
             mlp = self.num_experts * (3 * d * f if self.act == "silu" else 2 * d * f)
-            return emb + L * (attn + router + mlp + 2 * d)
+            return emb + self._mixer_params() + \
+                L * (router + mlp + 3 * d * self.shared_expert_ff + 2 * d)
         if self.family == "ssm":  # rwkv6
             # time-mix: r,k,v,g,w projections + output; channel-mix: 2 mats
             tm = 5 * d * d + d * d
@@ -146,12 +161,28 @@ class ModelConfig:
         if self.family != "moe":
             return self.param_count()
         d, f, L = self.d_model, self.d_ff, self.num_layers
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        mlp = self.experts_per_token * (3 * d * f if self.act == "silu" else 2 * d * f)
+        return emb + self._mixer_params() + L * (
+            d * self.num_experts + mlp + 3 * d * self.shared_expert_ff
+            + 2 * d)
+
+    def _mixer_params(self) -> int:
+        """Parameters of every layer's mixer: GQA projections, or for a
+        ``"mamba"`` layer of ``layer_types`` the Mamba2 mixer's in_proj
+        (d -> 2 d_in + 2 N + H), conv kernel and bias, A_log, D, dt_bias,
+        gated-norm weight and out_proj."""
+        d = self.d_model
         hq = self.num_heads * self.head_dim
         hkv = self.num_kv_heads * self.head_dim
-        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         attn = d * hq + 2 * d * hkv + hq * d
-        mlp = self.experts_per_token * (3 * d * f if self.act == "silu" else 2 * d * f)
-        return emb + L * (attn + d * self.num_experts + mlp + 2 * d)
+        d_in, N = self.ssm_expand * d, self.ssm_state
+        H = d_in // self.ssm_head_dim
+        conv = d_in + 2 * N
+        mamba = (d * (2 * d_in + 2 * N + H) + (self.ssm_conv_width + 1) * conv
+                 + 3 * H + d_in + d_in * d)
+        kinds = self.layer_types or ("attention",) * self.num_layers
+        return sum(mamba if k == "mamba" else attn for k in kinds)
 
     def reduced(self, **overrides) -> "ModelConfig":
         """Tiny same-family config for CPU smoke tests."""
@@ -168,8 +199,12 @@ class ModelConfig:
         )
         if self.family == "moe":
             kw.update(num_experts=4, experts_per_token=2)
-        if self.family in ("ssm", "hybrid"):
+        if self.family in ("ssm", "hybrid") or "mamba" in self.layer_types:
             kw.update(ssm_state=16, ssm_head_dim=32, rwkv_head_dim=32)
+        if self.shared_expert_ff:
+            kw.update(shared_expert_ff=128)
+        if self.layer_types:
+            kw.update(num_layers=layer_period(self.layer_types))
         if self.family == "hybrid":
             kw.update(attn_every=1, num_layers=2)
         if self.is_encoder_decoder:
@@ -177,7 +212,20 @@ class ModelConfig:
         if self.pos_type == "mrope":
             kw.update(mrope_sections=(8, 4, 4))
         kw.update(overrides)
+        if self.layer_types and "layer_types" not in overrides:
+            p = layer_period(self.layer_types)
+            kw["layer_types"] = tuple(self.layer_types[i % p]
+                                      for i in range(kw["num_layers"]))
         return replace(self, **kw)
+
+
+def layer_period(layer_types: Tuple[str, ...]) -> int:
+    """The shortest p with ``layer_types[i] == layer_types[i % p]`` for
+    every layer: one whole period of the stack's pattern of mixers."""
+    n = len(layer_types)
+    return next(p for p in range(1, n + 1)
+                if all(layer_types[i] == layer_types[i % p]
+                       for i in range(n)))
 
 
 # ---------------------------------------------------------------------------

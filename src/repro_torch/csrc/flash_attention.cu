@@ -25,7 +25,8 @@
 //   f32, every D            flash_f32_kernel<D> (FP32 FMAs)
 //
 // Numerics of both bf16 kernels (the tests' emulation): Q is not
-// pre-scaled in bf16; the f32 scores are multiplied by log2(e)/sqrt(D) in
+// pre-scaled in bf16; the f32 scores are multiplied by log2(e) times the
+// launch's scale (1/sqrt(D), or the caller's: Granite-4.0-H's 1/128) in
 // the FMA that feeds exp2, so no scale (D = 80's 1/sqrt(80) included) is
 // ever rounded to bf16. (The wgmma kernel takes exp2 as ex2.approx.ftz,
 // exp2f's approximation without its subnormal fix-up.) The online softmax (row max and sum by quad
@@ -91,8 +92,8 @@
 //   * K/V tiles of 64 keys are staged in shared memory as f32 (rows padded
 //     to D+1 words against bank conflicts), loaded synchronously; the
 //     running (m, l, acc) of the online softmax stay in f32 registers;
-//   * q is scaled by 1/sqrt(D) in f32 before the QK^T product, as in the
-//     reference kernel;
+//   * q is scaled by the launch's scale (1/sqrt(D) unless the caller gives
+//     another) in f32 before the QK^T product, as in the reference kernel;
 //   * causal blocks loop over KV tiles only up to the tile's last query
 //     row; masked keys get probability exactly 0. Every row sees key 0 in
 //     its first tile, so the running max is finite from the first tile on.

@@ -1,8 +1,8 @@
 // Chunked Mamba2 SSD scan on the H100: at Zamba2's (P, N) = (64, 64) a
 // C . B^T pre-pass and a warp-specialised scan on TMA and wgmma
 // (`ssd_gram_kernel`, `ssd_wgmma_kernel`); at the reference kernel test's
-// (16, 8) and (32, 16) the pre-pass and mma.sync scan
-// (`ssd_prep_kernel`, `ssd_scan_kernel`), below it.
+// (16, 8) and (32, 16) and at Granite-4.0-H's (64, 128) the pre-pass and
+// mma.sync scan (`ssd_prep_kernel`, `ssd_scan_kernel`), below it.
 //
 // Replaces the Pallas TPU kernel `ssd_chunked` / `_ssd_kernel` of
 // src/repro/kernels/ssd_chunk.py: x (B, S, H, P) f32, dt and la (B, S, H)
@@ -108,8 +108,8 @@
 
 
 // ---------------------------------------------------------------------------
-// The mma.sync kernels, kept for (P, N) = (16, 8) and (32, 16): a parallel
-// pre-pass and a scan on mma.sync.
+// The mma.sync kernels, for (P, N) = (16, 8), (32, 16) and (64, 128): a
+// parallel pre-pass and a scan on mma.sync.
 //   * ssd_prep_kernel, one block of 8 warps per (quarter of a chunk's rows,
 //     chunk, batch row), fully parallel: G = C . B^T, the s <= t triangle
 //     of each (64 x 64) tile, in FP32 FMAs into a scratch (B, ceil(S/64),
@@ -121,6 +121,11 @@
 //     shared memory; per chunk of kC = 64 tokens the next chunk's tiles in
 //     flight by cp.async, M and B' in place, and y and the new state on
 //     mma.sync m16n8k8 (3xTF32); three barriers per chunk.
+// At (64, 128) a block of all 64 columns would need 247,808 bytes of
+// shared memory (the double-buffered Bm and Cm tiles are 64 x 128 floats
+// each), more than a block may have (232,448); in slices of PS = 32
+// columns it needs 215,040, one block per SM, two slices a head. Each warp
+// then carries four of the state's eight 16-row tiles (two at N <= 64).
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -325,8 +330,12 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
                 int H, int B) {
   constexpr int kThreads = ScanShape<PS>::kThreads;
   constexpr int kGq = kC * kC / 4 / kThreads;   // M float4 per thread
+  // the state's 16-row tiles each warp carries: the two warps of a column
+  // group split the N rows, two tiles each up to N = 64
+  constexpr int kHm = N > 64 ? N / 32 : 2;
   static_assert(PS == 16 || PS == 32 || PS == 64, "PS in {16, 32, 64}");
-  static_assert(P % PS == 0 && N % 4 == 0 && N <= 64, "P, N");
+  static_assert(P % PS == 0 && N % 4 == 0 && (N <= 64 || N % 32 == 0) &&
+                    N <= 128, "P, N");
   extern __shared__ float4 smem4[];
   ScanSmem<N, PS>& sm = *reinterpret_cast<ScanSmem<N, PS>*>(smem4);
 
@@ -385,11 +394,12 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
   // warp the same share of the triangle s <= t
   const int par = w & 1;
   const int ym[2] = {par, 3 - par};
-  const int hm[2] = {2 * par, 2 * par + 1};
   const int nc[2] = {16 * (w >> 1) + g, 16 * (w >> 1) + 8 + g};
-  bool hon[2], hr0[2], hr1[2];                  // state tile / rows present
+  int hm[kHm];
+  bool hon[kHm], hr0[kHm], hr1[kHm];            // state tile / rows present
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < kHm; ++m) {
+    hm[m] = kHm * par + m;
     hon[m] = 16 * hm[m] < N;
     hr0[m] = 16 * hm[m] + g < N;
     hr1[m] = 16 * hm[m] + g + 8 < N;
@@ -442,7 +452,7 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
     // all from the old state, on the tensor cores: main terms in *d, the
     // small ones of the 3xTF32 split in *c
     float yd[2][2][4] = {}, yc[2][2][4] = {};   // [m-tile][n-tile][frag]
-    float hd[2][2][4], hc[2][2][4] = {};
+    float hd[kHm][2][4], hc[kHm][2][4] = {};
 #pragma unroll
     for (int k0 = 0; k0 < N; k0 += 8) {
       FragB bh[2];
@@ -463,7 +473,6 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
       const float e0 = ecum[16 * ym[m] + g], e1 = ecum[16 * ym[m] + g + 8];
-      const int r0 = 16 * hm[m] + g, r1 = r0 + 8;
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
 #pragma unroll
@@ -471,6 +480,13 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
           yd[m][n][i] = (yd[m][n][i] + yc[m][n][i]) * (i < 2 ? e0 : e1);
           yc[m][n][i] = 0.f;
         }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kHm; ++m) {
+      const int r0 = 16 * hm[m] + g, r1 = r0 + 8;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
         const int col = nc[n] - g + 2 * t4;
         hd[m][n][0] = hr0[m] ? el * sm.h[r0][col] : 0.f;
         hd[m][n][1] = hr0[m] ? el * sm.h[r0][col + 1] : 0.f;
@@ -497,6 +513,9 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
           for (int n = 0; n < 2; ++n)
             mma_3xtf32(yd[m][n], yc[m][n], a, bx[n]);
         }
+      }
+#pragma unroll
+      for (int m = 0; m < kHm; ++m) {
         if (hon[m]) {                          // A = B'^T: row n, column s
           const int r0 = 16 * hm[m] + g, r1 = r0 + 8;
           const float* b0 = sm.Bt[st][k0 + t4];
@@ -530,7 +549,7 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
     }
     __syncthreads();          // (3) every read of the old state is done
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < kHm; ++m) {
       const int r0 = 16 * hm[m] + g, r1 = r0 + 8;
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
@@ -1090,12 +1109,14 @@ int launch(const float* x, const float* dt, const float* la, const float* Bm,
 
 }  // namespace ssd_hop
 
-// The (P, N) pairs the mma.sync kernels serve: the reference kernel test's
-// (16, 8) and (32, 16); a block carries all P columns. Zamba2's (64, 64)
-// is ssd_wgmma_kernel's.
+// The (P, N) pairs the mma.sync kernels serve, each with the columns PS a
+// block carries: the reference kernel test's (16, 8) and (32, 16), all P
+// columns; Granite-4.0-H's (64, 128), slices of 32 (shared memory). Zamba2's
+// (64, 64) is ssd_wgmma_kernel's.
 #define REPRO_SSD_SHAPES(X) \
-  X(16, 8)                  \
-  X(32, 16)
+  X(16, 8, 16)              \
+  X(32, 16, 32)             \
+  X(64, 128, 32)
 
 extern "C" {
 
@@ -1131,9 +1152,9 @@ int ssd_chunked_launch(const void* x, const void* dt, const void* la,
   float* op = static_cast<float*>(hout);
   if (P == ssd_hop::kP && N == ssd_hop::kN)
     return ssd_hop::launch(xp, dp, lp, bp, cp, hp, gp, yp, op, B, S, H, st);
-#define REPRO_SSD_LAUNCH(PP, NN)                                          \
+#define REPRO_SSD_LAUNCH(PP, NN, PS)                                      \
   if (P == PP && N == NN)                                                 \
-    return launch<PP, NN, PP>(xp, dp, lp, bp, cp, hp, gp, ap, yp, op, B, S, \
+    return launch<PP, NN, PS>(xp, dp, lp, bp, cp, hp, gp, ap, yp, op, B, S, \
                               H, st);
   REPRO_SSD_SHAPES(REPRO_SSD_LAUNCH)
 #undef REPRO_SSD_LAUNCH
@@ -1142,8 +1163,8 @@ int ssd_chunked_launch(const void* x, const void* dt, const void* la,
 
 // How the scan kernel for (P, N) sits on this device: its blocks per SM
 // (from the occupancy calculator, with its shared memory) and its column
-// slices per head (1: every kernel carries all P columns). Returns a
-// cudaError_t.
+// slices per head (P / PS; 1 where a block carries all P columns). Returns
+// a cudaError_t.
 int ssd_chunked_occupancy(int P, int N, int* blocks_per_sm, int* slices) {
   if (P == ssd_hop::kP && N == ssd_hop::kN) {
     const cudaError_t e = ssd_hop::configure();
@@ -1152,8 +1173,8 @@ int ssd_chunked_occupancy(int P, int N, int* blocks_per_sm, int* slices) {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, ssd_wgmma_kernel, ssd_hop::kThreads, ssd_hop::kSmem);
   }
-#define REPRO_SSD_OCC(PP, NN) \
-  if (P == PP && N == NN) return occupancy<PP, NN, PP>(blocks_per_sm, slices);
+#define REPRO_SSD_OCC(PP, NN, PS) \
+  if (P == PP && N == NN) return occupancy<PP, NN, PS>(blocks_per_sm, slices);
   REPRO_SSD_SHAPES(REPRO_SSD_OCC)
 #undef REPRO_SSD_OCC
   return cudaErrorInvalidValue;
@@ -1167,10 +1188,10 @@ int ssd_chunked_smem(int P, int N, int* bytes, int* threads) {
     *threads = ssd_hop::kThreads;
     return 0;
   }
-#define REPRO_SSD_SMEM(PP, NN)                  \
+#define REPRO_SSD_SMEM(PP, NN, PS)              \
   if (P == PP && N == NN) {                     \
-    *bytes = scan_smem_bytes<PP, NN, PP>();     \
-    *threads = ScanShape<PP>::kThreads;         \
+    *bytes = scan_smem_bytes<PP, NN, PS>();     \
+    *threads = ScanShape<PS>::kThreads;         \
     return 0;                                   \
   }
   REPRO_SSD_SHAPES(REPRO_SSD_SMEM)

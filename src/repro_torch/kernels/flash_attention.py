@@ -3,7 +3,9 @@
 Port of ``repro.kernels.flash_attention.flash_attention`` (the Pallas TPU
 kernel): q (B, S, Hq, D); k, v (B, Sk, Hkv, D) -> (B, S, Hq, D) in q's
 dtype, with query head h reading KV head h // (Hq // Hkv), scores and
-softmax statistics in f32, and q scaled by 1/sqrt(D) before QK^T.
+softmax statistics in f32, and q scaled by 1/sqrt(D) before QK^T (or by
+the caller's ``scale``: Granite-4.0-H's attention multiplier 1/128, the
+reference kernel having no such argument).
 
 Two versions of the same function live here:
 
@@ -89,16 +91,19 @@ def flash_grid(B: int, Sq: int, Hq: int, kernel: str) -> Tuple[int, int, int]:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True,
+                          scale=None) -> torch.Tensor:
     """q (B,S,Hq,D); k,v (B,Sk,Hkv,D) -> (B,S,Hq,D) in q's dtype.
 
-    The kernel's arithmetic without tiling: q scaled by 1/sqrt(D) in f32,
-    f32 scores against the query's KV group, causal mask aligned at
-    position 0, f32 softmax, f32 PV, one cast at the end."""
+    The kernel's arithmetic without tiling: q scaled by ``scale`` (None:
+    1/sqrt(D)) in f32, f32 scores against the query's KV group, causal
+    mask aligned at position 0, f32 softmax, f32 PV, one cast at the
+    end."""
     B, S, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    scale = 1.0 / math.sqrt(D)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
     qg = q.float().reshape(B, S, Hkv, G, D) * scale
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
     if causal:
@@ -110,7 +115,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True,
+                         scale=None) -> torch.Tensor:
     """The CUDA kernel on CUDA tensors; same contract as the plain version.
 
     q, k, v contiguous and 16-byte aligned, one dtype (float32 or
@@ -149,7 +155,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, S, Sk, Hq, Hkv, D, KERNELS[kernel][0],
-            1.0 / math.sqrt(D), int(bool(causal)), stream)
+            1.0 / math.sqrt(D) if scale is None else scale,
+            int(bool(causal)), stream)
     _LIB.check(err, "flash_attention launch")
     flash_attention_cuda.launches += 1
     return out

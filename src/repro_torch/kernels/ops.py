@@ -70,12 +70,13 @@ def refuse_grad(name: str, *tensors) -> None:
             "PyTorch version")
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q (B,S,Hq,D); k,v (B,Sk,Hkv,D) -> (B,S,Hq,D)."""
+def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+    """q (B,S,Hq,D); k,v (B,Sk,Hkv,D) -> (B,S,Hq,D); ``scale`` on the
+    scores (None: 1/sqrt(D))."""
     if _on_cpu(q):
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     refuse_grad("flash_attention", q, k, v)
-    return flash_attention_cuda(q, k, v, causal=causal)
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
 
 
 def decode_attention(q, cache_k, cache_v, kv_len):

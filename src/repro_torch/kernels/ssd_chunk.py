@@ -37,12 +37,15 @@ Three versions of the recurrence live here:
   B' and C', the intra-step product and the step's local state, on
   ``wgmma``), and a warpgroup carries the state in registers through the
   chain (one ``wgmma`` product and an elementwise update per step). At the
-  reference kernel test's (16, 8) and (32, 16) the mma.sync kernels: a fully
-  parallel pre-pass writes G = C . B^T once per (batch row, chunk of 64)
-  and each chunk's prefix sums and factors into scratch arrays the wrapper
-  allocates, and a scan carries the state in shared memory through the
-  chunks on ``mma.sync``. Every product is a split 3xTF32 product (f32
-  accuracy, not single-pass TF32).
+  reference kernel test's (16, 8) and (32, 16) and at Granite-4.0-H's
+  (64, 128) the mma.sync kernels: a fully parallel pre-pass writes G =
+  C . B^T once per (batch row, chunk of 64) and each chunk's prefix sums
+  and factors into scratch arrays the wrapper allocates, and a scan
+  carries the state in shared memory through the chunks on ``mma.sync``,
+  one block per (column slice, head, batch row): all P columns at (16, 8)
+  and (32, 16), slices of ``SCAN_COLUMNS`` = 32 at (64, 128), where a block
+  of all 64 would need more shared memory than a block may have. Every
+  product is a split 3xTF32 product (f32 accuracy, not single-pass TF32).
 
 Both chunked versions take any S. The reference asserts ``S % chunk == 0``
 (its model at ``chunk = min(64, S)``), so it cannot prefill a 100-token
@@ -64,13 +67,16 @@ from repro_torch.kernels.build import CudaLibrary
 #: reference model's CHUNK)
 CHUNK = 64
 #: the (head size P, state size N) pairs the CUDA kernels are instantiated
-#: for: Zamba2's and the reference kernel test's two
-CUDA_SHAPES = ((16, 8), (32, 16), (64, 64))
+#: for: Zamba2's, the reference kernel test's two and Granite-4.0-H's
+CUDA_SHAPES = ((16, 8), (32, 16), (64, 64), (64, 128))
 #: the pairs ``ssd_wgmma_kernel`` serves; the others run the mma.sync pre-pass
 #: and scan
 WGMMA_SHAPES = ((64, 64),)
 #: tokens per step of ``ssd_wgmma_kernel``
 WGMMA_STEP = 32
+#: the columns a block of the mma.sync scan carries, where not all P
+#: (``csrc/ssd_chunk.cu``'s REPRO_SSD_SHAPES)
+SCAN_COLUMNS = {(64, 128): 32}
 
 _LIB = CudaLibrary("ssd_chunk.cu", {
     "ssd_chunked_launch": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
@@ -101,14 +107,17 @@ def scan_plan(B, S, H, P, N):
     each block, the (head, batch row, tokens, columns) it carries.
     ``ssd_wgmma_kernel``: one block per (head, batch row), all P columns,
     every token in steps of ``WGMMA_STEP``; the mma.sync scan: one block per
-    (column slice, head, batch row) with one slice of all P columns, in
-    chunks of ``CHUNK``."""
+    (column slice, head, batch row), each slice ``SCAN_COLUMNS`` columns
+    (all P where the pair is not listed), in chunks of ``CHUNK``."""
     kernel = scan_kernel(P, N)[-1]
-    step = WGMMA_STEP if (P, N) in WGMMA_SHAPES else CHUNK
-    grid = (H, B) if (P, N) in WGMMA_SHAPES else (1, H, B)
+    wgmma = (P, N) in WGMMA_SHAPES
+    step = WGMMA_STEP if wgmma else CHUNK
+    ps = P if wgmma else SCAN_COLUMNS.get((P, N), P)
+    grid = (H, B) if wgmma else (P // ps, H, B)
     blocks = [{"head": h, "batch": b, "tokens": range(S),
-               "columns": range(P), "steps": -(-S // step)}
-              for b in range(B) for h in range(H)]
+               "columns": range(p0, p0 + ps), "steps": -(-S // step)}
+              for b in range(B) for h in range(H)
+              for p0 in range(0, P, ps)]
     return {"kernel": kernel, "grid": grid, "step": step, "blocks": blocks}
 
 

@@ -52,10 +52,14 @@ _FAMILY_MODULES = {"dense": transformer, "moe": transformer,
 def _module(cfg: ModelConfig):
     """The module serving ``cfg``'s family; an unknown family (or a
     position type the transformer does not serve) raises
-    ``NotImplementedError`` (``transformer.require_decoder``)."""
+    ``NotImplementedError`` (``transformer.require_decoder``), and so does
+    a decoder stack with Mamba2 layers, whose KV-cache path would need an
+    SSM cache that the port does not have (``transformer.require_kv_cache``:
+    Granite-4.0-H is served through the pipeline server only)."""
     mod = _FAMILY_MODULES.get(cfg.family, transformer)
     if mod is transformer:
         transformer.require_decoder(cfg)
+        transformer.require_kv_cache(cfg)
     return mod
 
 

@@ -125,7 +125,8 @@ def _per_shard(fn, q, k, v, kv_len=None, q_offset=0):
 
 
 def attention_direct(q, k, v, *, causal: bool, q_offset=0,
-                     kv_len=None, window: int = 0, seq_shard: bool = False):
+                     kv_len=None, window: int = 0, seq_shard: bool = False,
+                     scale=None):
     """q (B,Sq,Hq,D); k,v (B,Sk,Hkv,D) -> (B,Sq,Hq,D).
 
     ``q_offset`` (int or (B,)) is the position of the first query row.
@@ -134,7 +135,8 @@ def attention_direct(q, k, v, *, causal: bool, q_offset=0,
     ``seq_shard``: the reference's sequence-parallel decode layout (q
     replicated over ``model``, the cache and the scores sharded along the
     sequence, grouped KV heads never repeated); the same arithmetic, and
-    nothing changes outside an activation policy.
+    nothing changes outside an activation policy. ``scale`` multiplies the
+    f32 scores (None: 1/sqrt(D)).
     """
     B, Sq, Hq, D = q.shape
     if seq_shard:
@@ -146,14 +148,15 @@ def attention_direct(q, k, v, *, causal: bool, q_offset=0,
         v = _repeat_kv(v, Hq)
         out = _per_shard(lambda q, k, v, kv_len, q_offset: attention_direct(
             q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
-            window=window), q, k, v, kv_len, q_offset)
+            window=window, scale=scale), q, k, v, kv_len, q_offset)
         if out is not None:
             return out
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     dev = q.device
-    # 1/sqrt(D) rounded in f32, as the reference's f32 constant
-    scale = torch.tensor(float(D), dtype=torch.float32).rsqrt().item()
+    if scale is None:
+        # 1/sqrt(D) rounded in f32, as the reference's f32 constant
+        scale = torch.tensor(float(D), dtype=torch.float32).rsqrt().item()
     qg = q.reshape(B, Sq, Hkv, G, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                           k.float()) * scale
@@ -183,7 +186,7 @@ def _mask_bias(mask):
 
 def attention_chunked(q, k, v, *, causal: bool, chunk: int = 1024,
                       window: int = 0, unroll: bool = False,
-                      chunk_remat: bool = False):
+                      chunk_remat: bool = False, scale=None):
     """Online-softmax attention over KV chunks of ``chunk`` keys: the
     reference's ``attention_chunked``, the same arithmetic in a Python
     loop (f32 scores, the -1e30 mask bias, running max / sum / output in
@@ -193,22 +196,25 @@ def attention_chunked(q, k, v, *, causal: bool, chunk: int = 1024,
     rematerialises each chunk's step in backward, as the reference's
     ``jax.checkpoint`` of its scan body. ``unroll`` picks how XLA traces
     the reference's scan (unrolled for the dry-run's cost analysis); an
-    eager loop has no such choice, so it is accepted and ignored."""
+    eager loop has no such choice, so it is accepted and ignored.
+    ``scale`` multiplies the f32 scores (None: 1/sqrt(D))."""
     B, Sq, Hq, D = q.shape
     Sk = k.shape[1]
     if Sk % chunk != 0:
-        return attention_direct(q, k, v, causal=causal, window=window)
+        return attention_direct(q, k, v, causal=causal, window=window,
+                                scale=scale)
     k = _repeat_kv(k, Hq)
     v = _repeat_kv(v, Hq)
     out = _per_shard(lambda q, k, v, _kv_len, _q_offset: attention_chunked(
         q, k, v, causal=causal, chunk=chunk, window=window,
-        chunk_remat=chunk_remat), q, k, v)
+        chunk_remat=chunk_remat, scale=scale), q, k, v)
     if out is not None:
         return out
     Hkv = k.shape[2]
     G = Hq // Hkv
     dev = q.device
-    scale = torch.tensor(float(D), dtype=torch.float32).rsqrt().item()
+    if scale is None:
+        scale = torch.tensor(float(D), dtype=torch.float32).rsqrt().item()
     qg = q.reshape(B, Sq, Hkv, G, D).float()
     q_pos = torch.arange(Sq, device=dev)[:, None]
 
@@ -239,14 +245,14 @@ def attention_chunked(q, k, v, *, causal: bool, chunk: int = 1024,
     return out.reshape(B, Hq, Sq, D).transpose(1, 2).to(q.dtype)
 
 
-def attention_flash(q, k, v, *, causal: bool):
+def attention_flash(q, k, v, *, causal: bool, scale=None):
     """Kernel K3 (``kernels/flash_attention.py``) through its dispatch."""
     return ops.flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal)
+                               v.contiguous(), causal=causal, scale=scale)
 
 
 def attend(cfg: ModelConfig, q, k, v, *, causal: bool = True,
-           q_offset: int = 0, kv_len=None, window: int = 0):
+           q_offset: int = 0, kv_len=None, window: int = 0, scale=None):
     """Dispatch on ``cfg.attn_impl`` and the key length, as the reference:
     flash (K3) when ``attn_impl="flash"`` and no ``kv_len``, causal or
     not, Sq equal to Sk or not; otherwise ``attention_chunked`` when
@@ -254,20 +260,22 @@ def attend(cfg: ModelConfig, q, k, v, *, causal: bool = True,
     0; otherwise ``attention_direct``. The reference's flash path silently
     ignores ``sliding_window``; here ``window > 0`` with
     ``attn_impl="flash"`` raises ``ValueError`` instead (no shipped config
-    sets a window)."""
+    sets a window). ``scale`` multiplies the scores in f32 on every route
+    (None: 1/sqrt(D); Granite-4.0-H passes its ``attention_multiplier``)."""
     Sk = k.shape[1]
     if cfg.attn_impl == "flash" and kv_len is None:
         if window:
             raise ValueError("attn_impl='flash' does not implement "
                              f"sliding_window={window}; use attn_impl='xla'")
-        return attention_flash(q, k, v, causal=causal)
+        return attention_flash(q, k, v, causal=causal, scale=scale)
     if Sk > cfg.attn_chunk_threshold and kv_len is None and q_offset == 0:
         chunk = max(cfg.attn_chunk_size, Sk // 8)
         return attention_chunked(q, k, v, causal=causal, chunk=chunk,
                                  window=window, unroll=not cfg.scan_layers,
-                                 chunk_remat=cfg.attn_chunk_remat)
+                                 chunk_remat=cfg.attn_chunk_remat,
+                                 scale=scale)
     return attention_direct(q, k, v, causal=causal, q_offset=q_offset,
-                            kv_len=kv_len, window=window)
+                            kv_len=kv_len, window=window, scale=scale)
 
 
 # ---------------------------------------------------------------------------

@@ -115,12 +115,25 @@ def init_embeddings(cfg: ModelConfig, generator: torch.Generator,
 
 
 #: the leaves the decoder's model functions read only through
-#: ``.to(<activation dtype>)`` at a matmul or a row gather, by the subtree
-#: that holds them: a layer's attention and feed-forward (the MLP's or the
-#: MoE experts' ``wi``, ``wg``, ``wo``) and the embeddings. The norms and the
-#: MoE router are read in f32 and are not among them.
-_CAST_LAYER = {"attn": ("wq", "wk", "wv", "wo"), "ffn": ("wi", "wg", "wo")}
+#: ``.to(<activation dtype>)`` at a matmul or a row gather, by the path of
+#: the subtree that holds them in a layer: its attention or Mamba2 mixer
+#: (the projections and the conv), its feed-forward (the MLP's or the MoE
+#: experts' ``wi``, ``wg``, ``wo``) and a shared expert's, and the
+#: embeddings. The norms, the MoE router and the Mamba2 mixer's A_log, D,
+#: dt_bias and gated-norm weight are read in f32 and are not among them.
+_CAST_LAYER = {("attn",): ("wq", "wk", "wv", "wo"),
+               ("ffn",): ("wi", "wg", "wo"),
+               ("ffn", "shared"): ("wi", "wg", "wo"),
+               ("mamba",): ("in_proj", "conv_w", "conv_b", "out_proj")}
 _CAST_EMBED = ("tok", "pos", "head")
+
+
+def _subtree(lp: Params, path):
+    """The dict at ``path`` inside a layer's dict, None where it has
+    none (a Mamba2 layer has no ``attn``, a dense one no shared expert)."""
+    for key in path:
+        lp = lp.get(key) if isinstance(lp, dict) else None
+    return lp
 
 
 def _cast_sites(params: Params):
@@ -129,8 +142,10 @@ def _cast_sites(params: Params):
     emb = params["embed"]
     yield from ((emb, k) for k in _CAST_EMBED if k in emb)
     for lp in params["layers"]:
-        for sub, keys in _CAST_LAYER.items():
-            yield from ((lp[sub], k) for k in keys if k in lp[sub])
+        for path, keys in _CAST_LAYER.items():
+            sub = _subtree(lp, path)
+            if sub is not None:
+                yield from ((sub, k) for k in keys if k in sub)
 
 
 def cast_matmul_weights(cfg: ModelConfig, params: Params) -> Params:
@@ -142,9 +157,18 @@ def cast_matmul_weights(cfg: ModelConfig, params: Params) -> Params:
     a tree already in that dtype costs no new bytes. The copy is taken
     here: a caller that changes ``params`` afterwards casts again."""
     dt = adtype(cfg)
+
+    def copy_layer(lp):
+        """The layer's dict with a new dict at each ``_CAST_LAYER`` path
+        it holds (outer paths first), the leaves still the caller's."""
+        out = dict(lp)
+        for path in _CAST_LAYER:
+            if _subtree(lp, path) is not None:
+                parent = _subtree(out, path[:-1])
+                parent[path[-1]] = dict(parent[path[-1]])
+        return out
     out = {**params, "embed": dict(params["embed"]),
-           "layers": [{**lp, **{sub: dict(lp[sub]) for sub in _CAST_LAYER}}
-                      for lp in params["layers"]]}
+           "layers": [copy_layer(lp) for lp in params["layers"]]}
     with torch.no_grad():
         for p, k in _cast_sites(out):
             p[k] = p[k].to(dt)
@@ -162,10 +186,13 @@ def cast_once_count(cfg: ModelConfig, params: Params) -> Dict[str, int]:
 
 
 def embed_tokens(cfg: ModelConfig, p: Params, tokens, positions=None):
-    """tokens (B, S) int -> (B, S, d) activations (learned positions added
-    when the config has them; rows looked up by ``sharding.take_rows``,
-    plain indexing outside an activation policy)."""
+    """tokens (B, S) int -> (B, S, d) activations: the rows times
+    ``cfg.embedding_multiplier`` (no multiply at 1), learned positions
+    added when the config has them; rows looked up by
+    ``sharding.take_rows``, plain indexing outside an activation policy."""
     x = take_rows(p["tok"], tokens).to(adtype(cfg))
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     if cfg.pos_type == "learned":
         if positions is None:
             positions = torch.arange(tokens.shape[-1],
@@ -176,14 +203,18 @@ def embed_tokens(cfg: ModelConfig, p: Params, tokens, positions=None):
 
 def logits_head(cfg: ModelConfig, p: Params, x):
     """x (..., d) -> (..., V) logits in ``cfg.logits_dtype`` (tied head:
-    the token embedding matrix)."""
+    the token embedding matrix), divided by ``cfg.logits_scaling`` (no
+    division at 1)."""
     w = p["tok"] if cfg.tie_embeddings else p["head"]
     # a tied table's two gradients (the lookup's and this product's, a
     # partial sum where the vocab is not sharded) meet in its own layout
     out = torch.matmul(x, pin(w).to(x.dtype).t())
     if out.dim() == 3:
         out = constrain(out, "batch", "seq", "vocab")
-    return out.to(_DTYPES[cfg.logits_dtype])
+    out = out.to(_DTYPES[cfg.logits_dtype])
+    if cfg.logits_scaling != 1.0:
+        out = out / cfg.logits_scaling
+    return out
 
 
 

@@ -33,6 +33,7 @@ from repro_torch.distributed.sharding import constrain, per_shard, reshape
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_chunk import ssd_chunked_plain as ssd_chunked, ssd_step
 from repro_torch.models.common import Params, dense_init, pdtype
+from repro_torch.obs.trace import NOOP_SPAN, wall
 
 
 def dims(cfg: ModelConfig):
@@ -134,7 +135,8 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x, state=None):
     """Full-sequence mixer. x (B,S,d) -> (B,S,d), (conv_state, ssm_state).
 
     ``state`` (conv (B,W-1,Ch), ssm (B,H,N,P)) continues a segment, as in
-    the reference; None starts from zeros."""
+    the reference; None starts from zeros. Wall span ``ssm.scan`` around
+    the chunked scan (``obs.trace.wall``)."""
     Bz, S, d = x.shape
     d_in, H, P, N = dims(cfg)
     dt_a = x.dtype
@@ -162,7 +164,10 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x, state=None):
             return ops.ssd(*(t.contiguous() for t in a))
     else:
         scan = ssd_chunked
-    y, h = _scan_per_shard(scan, ("batch", "seq"), xs, dt, la, Bm, Cm, h0)
+    tr = wall()
+    with tr.span("ssm.scan") if tr.enabled else NOOP_SPAN:
+        y, h = _scan_per_shard(scan, ("batch", "seq"), xs, dt, la, Bm, Cm,
+                               h0)
     y = y + xs * p["D"][None, None, :, None]
     y = constrain(reshape(y, Bz, S, d_in), "batch", "seq", "ff")
     y = _gated_rmsnorm(y, z.float(), p["gn_w"])

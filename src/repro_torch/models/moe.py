@@ -1,6 +1,7 @@
 """Mixture-of-Experts layer with sorted-scatter capacity dispatch.
 
-Port of ``repro.models.moe`` (phi3.5-moe, qwen3-moe). The algorithm is the
+Port of ``repro.models.moe`` (phi3.5-moe, qwen3-moe; the port's own
+Granite-4.0-H-Small adds a shared expert). The algorithm is the
 reference's, per layer:
 
   1. router logits (f32) -> softmax -> top-k experts, gates renormalised by
@@ -9,7 +10,10 @@ reference's, per layer:
   3. rank within each expert from the counts and their exclusive prefix
      sums; a rank >= capacity C is dropped;
   4. an (E, C, d) buffer of the kept tokens goes through the batched expert
-     FFN, is gathered back and combined with the gates.
+     FFN, is gathered back and combined with the gates;
+  5. with ``cfg.shared_expert_ff`` > 0, a shared SwiGLU expert of that
+     width (``models/mlp.py``), which every token passes through, adds its
+     output to the combined routed output.
 
 Each token picks an expert at most once, so a stable sort puts every
 expert's queue in token order whatever order ``topk`` returned a token's k
@@ -56,6 +60,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (constrain, per_shard, reshape,
                                                take_rows)
 from repro_torch.models.common import Params, dense_init, pdtype
+from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.obs.trace import NOOP_SPAN, wall
 
 
@@ -68,7 +73,8 @@ def moe_capacity(cfg: ModelConfig, num_tokens: int) -> int:
 def init_moe(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
     """Router (d, E) and expert stacks wi, wg (E, d, f) and wo (E, f, d),
     each ``dense_init`` × 0.02 in ``param_dtype``, as the reference (``wg``
-    for the gated ``silu`` experts only)."""
+    for the gated ``silu`` experts only); with ``cfg.shared_expert_ff`` >
+    0 also ``shared``, an MLP of that width (``init_mlp``)."""
     E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
     p = {
         "router": dense_init((d, E), generator, device, pdtype(cfg)),
@@ -77,6 +83,9 @@ def init_moe(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
     }
     if cfg.act == "silu":
         p["wg"] = dense_init((E, d, f), generator, device, pdtype(cfg))
+    if cfg.shared_expert_ff:
+        p["shared"] = init_mlp(cfg, generator, device,
+                               d_ff=cfg.shared_expert_ff)
     return p
 
 
@@ -138,8 +147,8 @@ def apply_moe(cfg: ModelConfig, p: Params, x, return_aux: bool = False):
     their rows by ``sharding.take_rows``. Wall spans (``obs.trace.wall``)
     ``moe.route`` (top-k, the sort of each token's choices, the gate
     gather), ``moe.dispatch`` (the plan and the buffer's gather),
-    ``moe.experts`` (the products and the activation) and
-    ``moe.combine``."""
+    ``moe.experts`` (the products and the activation), ``moe.combine``
+    and, with a shared expert, ``moe.shared``."""
     B, S, d = x.shape
     T = B * S
     k = cfg.experts_per_token
@@ -180,6 +189,9 @@ def apply_moe(cfg: ModelConfig, p: Params, x, return_aux: bool = False):
         for j in range(1, k):
             y = y + rows[:, j]
         y = constrain(reshape(y, B, S, d), "batch", "seq", "embed")
+    if cfg.shared_expert_ff:
+        with tr.span("moe.shared") if tr.enabled else NOOP_SPAN:
+            y = y + apply_mlp(cfg, p["shared"], x)
     if return_aux:
         return y, load_balance_loss(cfg, probs, idx)
     return y

@@ -1,5 +1,6 @@
 """Decoder-only transformer LM: the dense family (GPT-2 Large, TinyLlama,
-SmolLM, StarCoder2, Granite), the MoE family (qwen3-moe, phi3.5-moe) and
+SmolLM, StarCoder2, Granite), the MoE family (qwen3-moe, phi3.5-moe, and
+Granite-4.0-H-Small, whose stack mixes Mamba2 and attention layers) and
 the vlm family (Qwen2-VL: M-RoPE, and stub patch embeddings prepended to
 the token embeddings, ``prefix_embeds``).
 
@@ -9,8 +10,15 @@ engine's ``make_cache``, ``prefill``, ``block_decode`` and ``decode_step``,
 and the training loss ``loss_fn``, over a parameter dict whose ``"layers"`` entry is a list
 of per-layer dicts (the reference stacks them along a leading layer axis
 for ``jax.lax.scan``; PyTorch runs eagerly, so the layers are a plain
-loop). A layer's feed-forward is the MLP (``models/mlp.py``) or, for the
-``moe`` family, the expert layer (``models/moe.py``). The cache keeps the
+loop). A layer's mixer is GQA attention, or, where ``cfg.layer_types``
+names the layer ``"mamba"``, a Mamba2 mixer (``models/mamba2.py``) run over
+the whole sequence from a zero state; its feed-forward is the MLP
+(``models/mlp.py``) or, for the ``moe`` family, the expert layer
+(``models/moe.py``). ``cfg.residual_multiplier`` scales each mixer's and
+feed-forward's output before its residual add. A stack with Mamba2 layers
+has no KV-cache path here (``require_kv_cache``): its serving cache would
+hold each Mamba2 layer's conv and SSM state beside the attention layers'
+K and V. The cache keeps the
 reference's layout: ``k`` and ``v`` of shape (L, B, capacity, Hkv, D),
 layer-major so that each layer's slice is a contiguous (B, capacity, Hkv,
 D) tensor for kernel K4, and ``index``, the number of filled positions,
@@ -38,6 +46,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (Params, adtype, apply_norm,
                                        chunked_cross_entropy,
@@ -56,14 +65,35 @@ _POS_TYPES = ("learned", "none", "rope", "mrope")
 
 def require_decoder(cfg: ModelConfig) -> None:
     """Raise for configs this module does not serve. It serves the dense,
-    MoE and vlm families with learned positions, none, RoPE or M-RoPE;
-    RWKV6, Zamba2 and Whisper have modules of their own."""
+    MoE and vlm families with learned positions, none, RoPE or M-RoPE,
+    each layer's mixer attention or Mamba2 (``cfg.layer_types``); RWKV6,
+    Zamba2 and Whisper have modules of their own."""
     if cfg.family not in _FAMILIES or cfg.pos_type not in _POS_TYPES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / pos_type "
             f"{cfg.pos_type!r} is not served by the decoder-only "
             "transformer (dense, moe and vlm with learned, none, rope or "
             "mrope positions)")
+    kinds = cfg.layer_types
+    if kinds and (len(kinds) != cfg.num_layers
+                  or not set(kinds) <= {"attention", "mamba"}):
+        raise ValueError(f"{cfg.name}: layer_types must name 'attention' "
+                         f"or 'mamba' for each of the {cfg.num_layers} "
+                         f"layers, got {kinds}")
+
+
+def require_kv_cache(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a stack with Mamba2 layers: the
+    KV-cache path (``make_cache``, ``prefill``, ``decode_step``, the
+    engine) keeps K and V only, and has no SSM cache for the conv and
+    state of its Mamba2 layers."""
+    if "mamba" in cfg.layer_types:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.layer_types.count('mamba')} of its layers "
+            "are Mamba2 mixers, and the KV-cache path has no SSM cache "
+            "(each Mamba2 layer's conv and state beside the attention "
+            "layers' K and V); serve it through the pipeline server "
+            "(serving/gtrac_serve.py), which recomputes every prefix")
 
 
 # ---------------------------------------------------------------------------
@@ -72,9 +102,14 @@ def require_decoder(cfg: ModelConfig) -> None:
 
 
 def init_block(cfg: ModelConfig, generator: torch.Generator,
-               device) -> Params:
+               device, kind: str = "attention") -> Params:
+    """One layer: its mixer (``attn``, or ``mamba`` for a Mamba2 layer),
+    the two norms and the feed-forward."""
+    mixer = ({"mamba": mamba2.init_mamba2(cfg, generator, device)}
+             if kind == "mamba" else
+             {"attn": attn.init_attention(cfg, generator, device)})
     return {
-        "attn": attn.init_attention(cfg, generator, device),
+        **mixer,
         "norm1": init_norm(cfg, device),
         "norm2": init_norm(cfg, device),
         "ffn": (moe_mod.init_moe(cfg, generator, device)
@@ -91,8 +126,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     require_decoder(cfg)
     return {
         "embed": init_embeddings(cfg, generator, device),
-        "layers": [init_block(cfg, generator, device)
-                   for _ in range(cfg.num_layers)],
+        "layers": [init_block(cfg, generator, device, kind)
+                   for kind in layer_kinds(cfg)],
         "final_norm": init_norm(cfg, device),
     }
 
@@ -191,6 +226,18 @@ def params_to_numpy(tree: Any) -> Any:
 # ---------------------------------------------------------------------------
 
 
+def layer_kinds(cfg: ModelConfig):
+    """Each layer's mixer, ``"attention"`` or ``"mamba"``."""
+    return cfg.layer_types or ("attention",) * cfg.num_layers
+
+
+def _residual(cfg: ModelConfig, y):
+    """A mixer's or feed-forward's output as it joins the residual:
+    times ``cfg.residual_multiplier`` (no multiply at 1)."""
+    m = cfg.residual_multiplier
+    return y if m == 1.0 else y * m
+
+
 def _ffn(cfg: ModelConfig, p: Params, x):
     """The layer's feed-forward: (y, aux), aux the MoE load-balance loss
     (a 0-d f32 tensor) and 0.0 for the dense MLP."""
@@ -200,21 +247,32 @@ def _ffn(cfg: ModelConfig, p: Params, x):
 
 
 def block_forward(cfg: ModelConfig, p: Params, x, angles=None):
-    """Full-sequence (prefill) block. Returns (x, (k, v, aux)). Wall
-    spans ``model.attn`` and ``model.ffn`` (``obs.trace.wall``)."""
+    """Full-sequence (prefill) block. Returns (x, (k, v, aux)); k and v
+    None for a Mamba2 layer (``p`` holds ``mamba``), whose mixer runs over
+    the whole sequence from a zero state. Wall spans ``model.attn`` (or
+    ``model.ssm``) and ``model.ffn`` (``obs.trace.wall``)."""
     tr = wall()
-    with tr.span("model.attn") if tr.enabled else NOOP_SPAN:
-        h = apply_norm(cfg, p["norm1"], x)
-        q, k, v = attn.qkv_proj(cfg, p["attn"], h)
-        if angles is not None:
-            q = apply_rotary(q, angles)
-            k = apply_rotary(k, angles)
-        o = attn.attend(cfg, q, k, v, causal=True, window=cfg.sliding_window)
-        x = x + attn.out_proj(cfg, p["attn"], o)
+    if "mamba" in p:
+        k = v = None
+        with tr.span("model.ssm") if tr.enabled else NOOP_SPAN:
+            h = apply_norm(cfg, p["norm1"], x)
+            y, _ = mamba2.mamba2_forward(cfg, p["mamba"], h)
+            x = x + _residual(cfg, y)
+    else:
+        with tr.span("model.attn") if tr.enabled else NOOP_SPAN:
+            h = apply_norm(cfg, p["norm1"], x)
+            q, k, v = attn.qkv_proj(cfg, p["attn"], h)
+            if angles is not None:
+                q = apply_rotary(q, angles)
+                k = apply_rotary(k, angles)
+            o = attn.attend(cfg, q, k, v, causal=True,
+                            window=cfg.sliding_window,
+                            scale=cfg.attention_multiplier)
+            x = x + _residual(cfg, attn.out_proj(cfg, p["attn"], o))
     with tr.span("model.ffn") if tr.enabled else NOOP_SPAN:
         h = apply_norm(cfg, p["norm2"], x)
         y, aux = _ffn(cfg, p["ffn"], h)
-        x = x + y
+        x = x + _residual(cfg, y)
     return x, (k, v, aux)
 
 
@@ -262,10 +320,14 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens, positions=None,
     0..S_total-1). With ``collect_kv`` the result is (hidden, (k, v)),
     k, v stacked per layer: (L, B, S_total, Hkv, D). With ``return_aux``
     the MoE load-balance loss, the mean over layers (0.0 for a dense
-    layer), is appended: (hidden, aux) or (hidden, (k, v), aux). Under
+    layer), is appended: (hidden, aux) or (hidden, (k, v), aux). A stack
+    with Mamba2 layers has no K and V to collect (``require_kv_cache``).
+    Under
     ``cfg.remat`` each layer is rematerialised in backward, as the
     reference's ``jax.checkpoint`` of its layer body."""
     require_decoder(cfg)
+    if collect_kv:
+        require_kv_cache(cfg)
     learned = cfg.pos_type == "learned" and positions is not None and \
         positions.dim() == 2
     tr = wall()
@@ -337,6 +399,7 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
     """An empty cache on ``device`` (``cuda`` unless the caller passes
     another): zero K/V of (L, batch, capacity, Hkv, D) in the activation
     dtype (or ``dtype``), index 0."""
+    require_kv_cache(cfg)
     dtype = dtype or adtype(cfg)
     device = resolve_device(device)
     shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads,
@@ -378,6 +441,7 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache,
     unless ``positions`` ((B, 1), or (3, B, 1) for M-RoPE: Qwen2-VL's
     continued positions after an image prefix) are given."""
     require_decoder(cfg)
+    require_kv_cache(cfg)
     index = int(cache["index"])
     B = token.shape[0]
     dev = token.device

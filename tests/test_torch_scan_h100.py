@@ -130,6 +130,27 @@ def test_ssd_cuda_kernel_matches_plain_on_h100(B, S, H, P, N, state, decay):
 
 
 @pytest.mark.h100
+@pytest.mark.parametrize("B,S,H,state", [(1, 4096, 128, False),
+                                         (1, 1000, 128, True),
+                                         (2, 100, 4, True)])
+def test_ssd_cuda_kernel_at_granite_state_matches_plain_on_h100(B, S, H,
+                                                                 state):
+    """K6 at Granite-4.0-H's (P, N) = (64, 128), the mma.sync scan in
+    slices of 32 columns: its heads at the routed loop's prefix lengths
+    (S a whole number of chunks, and ragged with a nonzero state), and a
+    small grid; within 1e-5 of the output's scale (|y| reaches several
+    hundred at N = 128, beyond the absolute 5e-4 of the other shapes)."""
+    _needs_h100()
+    args = _ssd_inputs(B, S, H, 64, 128, seed=13, state=state)
+    got = sk.ssd_chunked_cuda(*args)
+    want = sk.ssd_chunked_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.h100
 def test_ops_ssd_launches_the_kernel_on_h100():
     _needs_h100()
     args = _ssd_inputs(2, 100, 2, 16, 8, seed=12, state=True)

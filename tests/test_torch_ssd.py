@@ -387,12 +387,13 @@ def test_kernel_arithmetic_ragged_length(S):
 
 
 @pytest.mark.parametrize("P,N,ps", [(16, 8, 8), (32, 16, 16), (64, 64, 64),
-                                    (64, 64, 16)])
+                                    (64, 64, 16), (64, 128, 32)])
 def test_kernel_arithmetic_column_slices(P, N, ps):
     """The mma.sync kernels' order with the state's columns carried in
     slices apart, then concatenated, gives the reference model's chunked
     form (1e-5 of scale) at every (P, N) the wrapper takes (its kernels
-    serve (16, 8) and (32, 16)), with a nonzero initial state."""
+    serve (16, 8), (32, 16) and, in slices of 32 columns, (64, 128)), with
+    a nonzero initial state."""
     arrs, tx = _inputs(1, 128, 2, P, N, seed=23, state=True)
     y, h = _mma_sync_emulation(*tx, ps=ps)
     jy, jh = jm2.ssd_chunked(*[jnp.asarray(a) for a in arrs], chunk=64)
@@ -469,7 +470,7 @@ def test_kernel_emulation_picks_the_launched_kernel():
     (64, 64) only, the two mma.sync kernels elsewhere, and refuses an
     uninstantiated pair."""
     assert tk.scan_kernel(64, 64) == ("ssd_gram_kernel", "ssd_wgmma_kernel")
-    for P, N in ((16, 8), (32, 16)):
+    for P, N in ((16, 8), (32, 16), (64, 128)):
         assert tk.scan_kernel(P, N) == ("ssd_prep_kernel", "ssd_scan_kernel")
     with pytest.raises(ValueError, match="not in"):
         tk.scan_kernel(64, 8)
@@ -478,7 +479,8 @@ def test_kernel_emulation_picks_the_launched_kernel():
 
 @pytest.mark.parametrize("B,S,H,P,N", [(2, 100, 3, 64, 64), (1, 1, 2, 64, 64),
                                        (3, 64, 2, 16, 8), (1, 129, 4, 32, 16),
-                                       (2, 0, 2, 64, 64)])
+                                       (2, 0, 2, 64, 64), (2, 100, 3, 64, 128),
+                                       (1, 64, 1, 64, 128)])
 def test_scan_plan_covers_each_element_once(B, S, H, P, N):
     """Every (token, head, batch row, column) is carried by exactly one
     block of the scan's grid, which has one block per entry of the plan,
@@ -494,3 +496,20 @@ def test_scan_plan_covers_each_element_once(B, S, H, P, N):
     assert (seen == 1).all()
     assert int(np.prod(plan["grid"])) == len(plan["blocks"])
     assert plan["kernel"] == tk.scan_kernel(P, N)[-1]
+
+
+def test_scan_columns_pinned_to_the_cuda_table():
+    """``SCAN_COLUMNS`` and ``CUDA_SHAPES`` restate ``csrc/ssd_chunk.cu``'s
+    REPRO_SSD_SHAPES table of (P, N, column slice): every mma.sync pair is
+    in it, and a pair's slice is ``SCAN_COLUMNS``' entry where it is not
+    all P columns, so that the plan and the launch cannot drift apart."""
+    import re
+    from pathlib import Path
+    src = (Path(tk.__file__).parents[1] / "csrc" / "ssd_chunk.cu").read_text()
+    table = src[src.index("#define REPRO_SSD_SHAPES"):]
+    table = table[:table.index("\n\n")]
+    rows = [tuple(map(int, m)) for m in
+            re.findall(r"X\((\d+),\s*(\d+),\s*(\d+)\)", table)]
+    assert {(P, N) for P, N, _ in rows} == \
+        set(tk.CUDA_SHAPES) - set(tk.WGMMA_SHAPES)
+    assert {(P, N): ps for P, N, ps in rows if ps != P} == tk.SCAN_COLUMNS

@@ -45,6 +45,8 @@ from repro_torch.serving.api import SubmitSpec
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.kv_cache import cache_bytes
 
+from _trees import PORT_ONLY_FIELDS, config_fields
+
 torch.set_num_threads(1)
 
 ARCHS = ["smollm-360m", "starcoder2-7b", "granite-34b", "qwen3-moe-30b-a3b",
@@ -79,8 +81,11 @@ def model_params(request):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_is_a_verbatim_copy(arch):
-    assert dataclasses.asdict(tget_config(arch)) == \
-        dataclasses.asdict(get_config(arch))
+    """Every field of the reference's config, as the reference gives it;
+    the port's own fields at the values that change nothing."""
+    shared, own = config_fields(tget_config(arch), get_config(arch))
+    assert shared == dataclasses.asdict(get_config(arch))
+    assert own == PORT_ONLY_FIELDS
     assert tget_config(arch).param_count() == get_config(arch).param_count()
 
 
